@@ -1,0 +1,112 @@
+"""Serving API: a config and a state_dict → a predictor on one device.
+
+    from gridgcn_torch.api import Predictor
+    predict = Predictor(cfg, state_dict)          # device="cuda"
+    logits = predict(points)                      # [N,3] or [B,N,3]
+    scene = predict.predict_scene(points, votes=2)
+
+The serving protocol is the JAX package's: BatchNorm folded into the Dense
+weights and the weights pre-cast to the preset's inference dtype
+(`models.fold.fold_inference`). Per-point tasks return [.., N, C] float32
+logits as numpy arrays. The CAGQ randomness comes from a jaxrng key
+(default `PRNGKey(0)`), so the same key gives the JAX package's indices.
+Not ported yet: orbax checkpoints (`load_predictor`), mesh serving and
+`predict_scenes`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gridgcn_torch.models.build import build_model
+from gridgcn_torch.models.fold import fold_inference
+from gridgcn_torch.utils import jaxrng
+
+
+class Predictor:
+    def __init__(self, cfg, state_dict, device="cuda", mesh=None):
+        """cfg: a `configs.base.Config`; state_dict: the model's unfolded
+        weights (e.g. from `init_model` or `utils.convert`); device: where
+        the model runs — "cuda" (the default) raises when CUDA is absent,
+        "cpu" runs the kernels' plain versions."""
+        if mesh is not None:
+            raise NotImplementedError("mesh serving is not ported yet")
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available; pass device='cpu' "
+                                   "to run on the CPU")
+            # float32 products in full float32 (the logits Dense is f32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.cfg, folded = fold_inference(cfg, state_dict)
+        model = build_model(self.cfg.model)
+        model.load_state_dict(folded)
+        self._model = model.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, xyz, feat=None, mask=None,
+                 rng: Optional[np.ndarray] = None) -> np.ndarray:
+        """xyz [N,3] or [B,N,3] → logits ([N,C] / [B,N,C] per cloud)."""
+        dev = self.device
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
+        squeeze = xyz.dim() == 2
+        if squeeze:
+            xyz = xyz[None]
+            feat = None if feat is None else torch.as_tensor(feat)[None]
+            mask = None if mask is None else torch.as_tensor(mask)[None]
+        if mask is None:
+            mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+        if feat is not None:
+            feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
+        key = rng if rng is not None else jaxrng.PRNGKey(0)
+        logits = self._model(xyz, feat, mask, key)
+        out = logits.float().cpu().numpy()
+        return out[0] if squeeze else out
+
+    def predict_classes(self, xyz, feat=None, mask=None):
+        return np.argmax(self(xyz, feat, mask), axis=-1)
+
+    def predict_scene(self, xyz, feat=None, *, votes: int = 1,
+                      rng: Optional[np.ndarray] = None) -> np.ndarray:
+        """Whole-scene per-point logits for ONE scene [N, 3] on this
+        device: `votes` CAGQ keys `fold_in(rng, v)` are logit-averaged (the
+        reference's whole-scene voting protocol). The JAX package's
+        spatially sharded tiers (`spatial=`) need mesh serving, which is
+        not ported yet."""
+        if self.cfg.model.task != "seg":
+            raise ValueError("predict_scene is for segmentation models")
+        if votes < 1:
+            raise ValueError(f"votes must be >= 1, got {votes}")
+        xyz = np.asarray(xyz, np.float32)
+        C_in = self.cfg.model.in_channels
+        if C_in and feat is None:
+            raise ValueError(f"this config has in_channels={C_in}: "
+                             f"predict_scene needs feat [N, {C_in}]")
+        if feat is not None:
+            feat = np.asarray(feat, np.float32)
+            if feat.shape != (xyz.shape[0], C_in):
+                raise ValueError(f"feat shape {feat.shape} != expected "
+                                 f"{(xyz.shape[0], C_in)}")
+        rng = jaxrng.PRNGKey(0) if rng is None else rng
+        acc = None
+        for v in range(votes):
+            lg = self(xyz, feat, rng=jaxrng.fold_in(rng, v))
+            acc = lg if acc is None else acc + lg
+        return acc / votes
+
+    def predict_scenes(self, scenes_xyz, feats=None, *, votes: int = 1,
+                       rng=None):
+        raise NotImplementedError(
+            "scene-batched mesh serving is not ported yet")
+
+
+def load_predictor(ckpt_dir: str, step: Optional[int] = None,
+                   mesh=None) -> Predictor:
+    raise NotImplementedError(
+        "checkpoint loading is not ported yet: build a Predictor from a "
+        "config and a state_dict")

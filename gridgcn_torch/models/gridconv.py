@@ -1,0 +1,70 @@
+"""F-08: GridConv block = CAGQ ∘ GCA (SURVEY.md §2.2, paper §3).
+
+CAGQ (pure index computation) runs first; its indices drive the gathers of
+node positions and features, and GCA does the dense work. The layer's CAGQ
+key is passed in: `GridGCNSegmentation` derives it from the forward's key
+the way flax's `make_rng("cagq")` does in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gridgcn_torch.configs.base import GridLayerSpec
+from gridgcn_torch.models.gca import GCA
+from gridgcn_torch.ops.cagq import cagq
+
+
+def gather_point_features(feat: torch.Tensor, idx: torch.Tensor):
+    """Batched take: feat [B, N, C], idx [B, M, K] → [B, M, K, C]."""
+    b = torch.arange(feat.shape[0], device=feat.device)[:, None, None]
+    return feat[b, idx]
+
+
+class GridConv(nn.Module):
+    def __init__(self, spec: GridLayerSpec, in_channels: int,
+                 dtype: torch.dtype = torch.float32, fold_bn: bool = False,
+                 att_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: Optional[torch.dtype] = None,
+                 feat_has_xyz_prefix: bool = False):
+        """in_channels: width of the level's point features (0: none).
+        feat_has_xyz_prefix: feat[..., :3] is the raw xyz (the input layer
+        with use_xyz_feature), so those channels come from the gathered
+        node positions instead of a second gather."""
+        super().__init__()
+        self.spec = spec
+        self.feat_has_xyz_prefix = feat_has_xyz_prefix
+        self.gca = GCA(spec, in_channels, dtype=dtype, fold_bn=fold_bn,
+                       att_dtype=att_dtype, bn_dtype=bn_dtype)
+
+    def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
+                mask: torch.Tensor, key: np.ndarray, bounds=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One downsampling stage: xyz [B, N, 3] f32, feat [B, N, C] or
+        None, mask [B, N] → (center_xyz [B, M, 3], center_feat [B, M, Co],
+        center_valid [B, M])."""
+        g = cagq(xyz, mask, self.spec, key, bounds=bounds).groups
+        # node positions are always the f32 gather of xyz (g.node_xyz); the
+        # JAX package's bf16 bitcast-pair gather gives the same values
+        node_xyz = g.node_xyz
+        if feat is None:
+            node_feat = None
+        elif self.feat_has_xyz_prefix:
+            nxyz = node_xyz.to(feat.dtype)
+            if feat.shape[-1] > 3:
+                rest = gather_point_features(feat[..., 3:], g.neighbor_idx)
+                node_feat = torch.cat([nxyz, rest], dim=-1)
+            else:
+                node_feat = nxyz
+        else:
+            node_feat = gather_point_features(feat, g.neighbor_idx)
+
+        delta_p = node_xyz - g.center_xyz[:, :, None, :]
+        delta_p = torch.where(g.neighbor_mask[..., None], delta_p, 0.0)
+        center_feat = self.gca(node_feat, delta_p, g.neighbor_mask,
+                               g.node_coverage)
+        return g.center_xyz, center_feat, g.center_valid

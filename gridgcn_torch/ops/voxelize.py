@@ -1,0 +1,239 @@
+"""F-01: fixed-capacity voxel-table build (SURVEY.md §2.1), packed-key form.
+
+Sort-based and race-free, as in the JAX package's `ops/voxelize.py`:
+
+  1. one stable sort of a key that packs [voxel id | random bits], so the
+     first nv points of each voxel are a uniform random subset (the
+     reference's shuffle-then-retain semantics),
+  2. rank within the voxel segment by a cumulative max over segment starts,
+  3. one scatter of each kept point's selection key into its (voxel, rank)
+     cell of a context-padded key table.
+
+This slice ports the build that CAGQ's packed-key path asks for
+(`with_keys=True`, `with_slots=False`, `sel_coords=False`,
+`with_coverage=False`). The slot table, the coordinate table and the
+combined selection table raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gridgcn_torch.ops.gridutil import vid_to_coords
+from gridgcn_torch.utils import jaxrng
+
+COV_BITS = 6
+# selection-key valid flag at bit 29: every key stays below 0x40000000
+VALID_KEY_MIN = 1 << 29
+
+
+@dataclass
+class VoxelTable:
+    """Fixed-capacity voxel table for one grid level (batch-major).
+
+    Attributes:
+      key_table:     [B, V, nv] int32 — selection keys
+                     [valid:1 @29 | random | coverage code:6 | point index]
+                     (a view of key_table_pad when that is built).
+      key_table_pad: [B, pad_lo+V+pad_hi, nv] int32 or None — the same keys
+                     in a context-padded buffer whose pad rows are zero
+                     (= invalid key).
+      coord_csum:    [B, N, 3] — inclusive cumulative sum of voxel-center
+                     residuals (point − its voxel's center) in voxel-sorted
+                     order; a voxel's barycenter is a difference of two rows.
+      seg_pos:       [B, V+1] int64 — position of each voxel's first sorted
+                     point (0 for unoccupied and for the sentinel row V).
+      occupancy:     [B, V] int64 — stored points per voxel (≤ nv).
+      point_vid:     [B, N] int64 — linear voxel id per input point (V for
+                     invalid/padded points).
+      sorted_vid:    [B, N] int64 — voxel id per point in voxel-sorted order.
+      origin:        [B, 3] — minimum corner of the grid.
+      vsize:         [B, 3] — voxel edge lengths.
+      resolution:    grid is resolution³ voxels.
+      nv:            slot capacity per voxel.
+    """
+
+    key_table: torch.Tensor
+    key_table_pad: torch.Tensor | None
+    coord_csum: torch.Tensor
+    seg_pos: torch.Tensor
+    occupancy: torch.Tensor
+    point_vid: torch.Tensor
+    sorted_vid: torch.Tensor
+    origin: torch.Tensor
+    vsize: torch.Tensor
+    resolution: int
+    nv: int
+
+    @property
+    def num_voxels(self) -> int:
+        return self.resolution ** 3
+
+
+def voxel_ids(xyz: torch.Tensor, mask: torch.Tensor, origin: torch.Tensor,
+              vsize: torch.Tensor, resolution: int) -> torch.Tensor:
+    """Linear voxel id per point; invalid points get the sentinel id V.
+    origin/vsize broadcast against xyz [..., 3]."""
+    V = resolution ** 3
+    coords = torch.floor((xyz - origin) / vsize).long()
+    coords = coords.clamp(0, resolution - 1)
+    vid = (coords[..., 0] * resolution + coords[..., 1]) * resolution \
+        + coords[..., 2]
+    return torch.where(mask, vid, V)
+
+
+def encode_coverage(count: torch.Tensor) -> torch.Tensor:
+    """6-bit coverage codec, encode side: counts < 32 exactly (codes
+    0..31), larger counts on 32 log-spaced codes at factor 2^(1/4) per step
+    (codes 32..63, ≤ 10% relative decode error up to ≈ 6889)."""
+    count = torch.clamp_min(count, 0)
+    logc = torch.log2(torch.clamp_min(count, 32).float() / 32.0)
+    code_log = 32 + torch.round(logc * 4.0).long()
+    return torch.where(count < 32, count, torch.clamp_max(code_log, 63))
+
+
+def decode_coverage(code: torch.Tensor) -> torch.Tensor:
+    """Inverse of `encode_coverage` (exact below 32, ≤10% error above)."""
+    approx = torch.round(
+        32.0 * torch.exp2((code - 32).float() / 4.0)).long()
+    return torch.where(code < 32, code, approx)
+
+
+def grid_bounds(xyz: torch.Tensor, mask: torch.Tensor, resolution: int):
+    """Per-cloud grid origin and voxel size from the valid-point bounding
+    box: xyz [B, N, 3], mask [B, N] → (origin [B, 3], vsize [B, 3])."""
+    big = torch.finfo(xyz.dtype).max
+    m = mask[..., None]
+    lo = torch.where(m, xyz, big).amin(dim=-2)
+    hi = torch.where(m, xyz, -big).amax(dim=-2)
+    extent = torch.clamp_min(hi - lo, 1e-4)
+    # tiny inflation so points exactly at the max corner land inside the grid
+    vsize = extent * (1.0 + 1e-5) / resolution
+    return lo, vsize
+
+
+def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
+                      nv: int, key: np.ndarray, with_coords: bool = False,
+                      with_keys: bool = False, with_slots: bool = True,
+                      bounds=None, key_pad: tuple[int, int] = (0, 0),
+                      sel_coords: bool = False,
+                      with_coverage: bool = True) -> VoxelTable:
+    """Build fixed-capacity voxel tables for a batch of point clouds.
+
+    Args:
+      xyz:  [B, N, 3] float32 point positions.
+      mask: [B, N] bool validity (padded points False).
+      resolution: grid edge; V = resolution³ voxels.
+      nv: per-voxel slot capacity.
+      key: jaxrng key driving the random slot-retention order.
+      bounds: optional (origin [B, 3], vsize [B, 3]) fixing the grid.
+      key_pad: (lo, hi) sentinel rows around the key table.
+    Only the packed-key build is ported: with_keys=True, with_slots=False,
+    with_coords=False, sel_coords=False, with_coverage=False.
+    """
+    if (with_coords or not with_keys or with_slots or sel_coords
+            or with_coverage):
+        raise NotImplementedError(
+            "only the packed-key voxel build is ported (with_keys=True, "
+            "with_slots=False, with_coords=False, sel_coords=False, "
+            "with_coverage=False)")
+    B, N = xyz.shape[:2]
+    V = resolution ** 3
+    dev = xyz.device
+    rand = jaxrng.bits(key, (B, N), dev)   # random per-voxel retention order
+
+    if bounds is None:
+        origin, vsize = grid_bounds(xyz, mask, resolution)
+    else:
+        origin, vsize = bounds
+    vid = voxel_ids(xyz, mask, origin[:, None], vsize[:, None], resolution)
+
+    # ONE single-key sort over [voxel id | random bits]; the sentinel id V
+    # packs to the largest keys, so invalid points sort last. Stable, so a
+    # tie in the random bits keeps the lower point index first, as XLA's
+    # sort does.
+    vid_bits = int(V).bit_length()
+    srand_bits = 32 - vid_bits
+    skey = (vid << srand_bits) | (rand >> vid_bits)
+    sorted_skey, sorted_pidx = torch.sort(skey, dim=-1, stable=True)
+    sorted_vid = sorted_skey >> srand_bits
+
+    idx = torch.arange(N, device=dev).expand(B, N)
+    ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    is_start = torch.cat([ones, sorted_vid[:, 1:] != sorted_vid[:, :-1]], 1)
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=-1).values
+    rank = idx - seg_start
+    keep = (sorted_vid < V) & (rank < nv)
+
+    # segment length (= raw voxel coverage) via the next segment start
+    nxt_src = torch.where(torch.cat([is_start[:, 1:], ones], 1), idx + 1, N)
+    next_start = torch.flip(
+        torch.cummin(torch.flip(nxt_src, [1]), dim=-1).values, [1])
+    seg_len = next_start - seg_start
+
+    idx_bits = max(1, int(N - 1).bit_length())
+    if idx_bits + COV_BITS + 1 > 29:
+        raise ValueError(
+            f"selection-key packing supports at most 2^{29 - COV_BITS - 1}"
+            f" points per cloud (N={N})")
+    rand_bits = max(1, 29 - idx_bits - COV_BITS)
+    cov_q = encode_coverage(seg_len)
+    # random selection-key bits: the top of the sort key's random field
+    rbits = (sorted_skey >> max(srand_bits - rand_bits, 0)) \
+        & ((1 << rand_bits) - 1)
+    keys = ((keep.long() << 29) | (rbits << (idx_bits + COV_BITS))
+            | (cov_q << idx_bits) | sorted_pidx)
+    # scatter into the context-padded buffer; (voxel, rank) cells are
+    # unique, dropped points land on one discarded extra cell
+    lo, hi = key_pad
+    rows = lo + V + hi
+    dest = torch.where(keep, (sorted_vid + lo) * nv
+                       + torch.clamp_max(rank, nv - 1), rows * nv)
+    key_table_pad = torch.zeros((B, rows * nv + 1), dtype=torch.int32,
+                                device=dev)
+    key_table_pad.scatter_(1, dest, keys.int())
+    key_table_pad = key_table_pad[:, :rows * nv].view(B, rows, nv)
+    key_table = key_table_pad[:, lo:lo + V]
+    if lo == 0 and hi == 0:
+        key_table_pad = None
+
+    # barycenter inputs: prefix sums of voxel-center residuals in sorted
+    # order (residuals are ≤ vsize/2, so the f32 sum does not cancel)
+    coords = torch.gather(xyz, 1, sorted_pidx[..., None].expand(B, N, 3))
+    sx, sy, sz = vid_to_coords(torch.clamp_max(sorted_vid, V - 1), resolution)
+    vcenter = (torch.stack([sx, sy, sz], -1).to(xyz.dtype) + 0.5) \
+        * vsize[:, None] + origin[:, None]
+    coord_csum = torch.cumsum(coords - vcenter, dim=1)
+
+    # seg_pos and occupancy packed into ONE scatter of the segment starts
+    occ_bits = int(nv).bit_length()
+    packed = (seg_start << occ_bits) | torch.clamp_max(seg_len, nv)
+    start_dest = torch.where(is_start & (sorted_vid < V), sorted_vid, V)
+    posocc = torch.zeros((B, V + 1), dtype=torch.int64, device=dev)
+    posocc.scatter_(1, start_dest, packed)
+    posocc[:, V] = 0      # the sentinel row collects every non-start
+    seg_pos = posocc >> occ_bits
+    occupancy = (posocc & ((1 << occ_bits) - 1))[:, :V]
+    return VoxelTable(key_table=key_table, key_table_pad=key_table_pad,
+                      coord_csum=coord_csum, seg_pos=seg_pos,
+                      occupancy=occupancy, point_vid=vid,
+                      sorted_vid=sorted_vid, origin=origin, vsize=vsize,
+                      resolution=resolution, nv=nv)
+
+
+def capacity_stats(table: VoxelTable) -> dict:
+    """Diagnostics for SURVEY §7 H1: how many points the capacity nv
+    dropped (the valid-point total comes from the per-point voxel ids)."""
+    stored = table.occupancy.sum(-1)
+    total = (table.point_vid < table.num_voxels).sum(-1)
+    dropped = total - stored
+    return {
+        "stored_points": stored,
+        "total_points": total,
+        "dropped_points": dropped,
+        "dropped_frac": dropped / torch.clamp_min(total, 1),
+        "occupied_voxels": (table.occupancy > 0).sum(-1),
+    }

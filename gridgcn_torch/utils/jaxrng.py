@@ -1,0 +1,102 @@
+"""JAX's threefry2x32 PRNG in numpy and torch, bit for bit.
+
+CAGQ's outputs are indices drawn from randomness that the JAX functions make
+inside themselves (`jax.random.bits`, `uniform`, `split`, `fold_in`). The
+port reproduces JAX's generator exactly (`threefry2x32` in its partitionable
+mode, `jax_threefry_partitionable=True`), so the same key gives the same
+indices in both packages.
+
+A key is what JAX calls its raw key data: a numpy uint32 array of shape
+(2,). Key derivation (`PRNGKey`, `split`, `fold_in`, `flax_make_rng`) runs on
+the host in numpy; draws (`bits`, `uniform`) run on the tensor's device in
+torch int64 arithmetic masked to 32 bits (uint32 ops are only partly
+supported on CUDA).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 hash of counter pairs (x0, x1) under key (k0, k1):
+    20 rounds, key injection every 4. Works on numpy uint32 arrays and on
+    torch int64 tensors holding values below 2³² (every add and left shift
+    is masked back to 32 bits)."""
+    k0, k1 = int(k0), int(k1)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ((ks[(i + 2) % 3] + i + 1) & _M32)) & _M32
+    return x0, x1
+
+
+def _np_hash(key, x0, x1):
+    x0 = np.asarray(x0, np.uint32)
+    x1 = np.asarray(x1, np.uint32)
+    return _threefry2x32(key[0], key[1], x0, x1)
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` for a 32-bit seed: key data [0, seed]."""
+    return np.array([0, int(seed) & _M32], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """`jax.random.split(key, num)` → [num, 2] uint32 keys."""
+    b0, b1 = _np_hash(key, np.zeros(num, np.uint32), np.arange(num))
+    return np.stack([b0, b1], axis=-1).astype(np.uint32)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)` for a uint32 `data`."""
+    b0, b1 = _np_hash(key, np.zeros(1, np.uint32), np.array([int(data) & _M32]))
+    return np.array([b0[0], b1[0]], np.uint32)
+
+
+def flax_make_rng(key: np.ndarray, path: tuple, counter: int) -> np.ndarray:
+    """The key that flax's `self.make_rng(name)` returns in the module at
+    `path` (its names from the root, e.g. ("gridconv0",)) on its
+    `counter`-th call, when `apply` was given `key` for that name: a
+    `fold_in` of the first 4 bytes of SHA-1 over the names and the counter
+    (flax 0.12 `core/scope.py` `_fold_in_static` and `make_rng`)."""
+    m = hashlib.sha1()
+    for x in (*path, counter):
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, "big"))
+    return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
+
+
+def bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.bits(key, shape)` (uint32) as an int64 tensor on
+    `device`: the hash of the flat row-major index, halves XOR-ed."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise NotImplementedError("more than 2^32 draws per key")
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.uniform(key, shape)` in [0, 1), float32: the top 23 bits
+    as the mantissa of a float in [1, 2), minus 1."""
+    b = bits(key, shape, device)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f, 0.0)

@@ -1,0 +1,129 @@
+"""The port's CAGQ (gridgcn_torch.ops) against the JAX package on the same
+inputs and key: every index field bit for bit, float fields to a stated
+tolerance."""
+
+import dataclasses
+from functools import partial
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gridgcn_tpu.configs import presets as jpresets
+from gridgcn_tpu.data.synthetic import synthetic_scene_surface
+from gridgcn_tpu.ops import voxelize as jvox
+from gridgcn_tpu.ops.cagq import cagq as jcagq
+from gridgcn_torch.configs import presets as tpresets
+from gridgcn_torch.ops import voxelize as tvox
+from gridgcn_torch.ops.cagq import cagq as tcagq
+
+torch.set_num_threads(1)
+
+N = 4096
+N_CENTERS = 512
+
+
+def _inputs():
+    """Two clouds: a surface scene, and a uniform cloud whose last 300
+    points are masked padding set to garbage."""
+    rng = np.random.default_rng(0)
+    xyz = np.stack([synthetic_scene_surface(N, seed=3),
+                    rng.uniform(0, 3, (N, 3)).astype(np.float32)])
+    mask = np.ones((2, N), bool)
+    mask[1, N - 300:] = False
+    xyz[1, N - 300:] = 77.7
+    return xyz, mask
+
+
+@pytest.fixture(scope="module")
+def layer0_outputs():
+    """Layer 0 of scannet_whole_scene (resolution 64, nv 16, K 32,
+    threshold RVS, packed keys) at N=4096 with M=512."""
+    spec_j = dataclasses.replace(
+        jpresets.scannet_whole_scene().model.layers[0], n_centers=N_CENTERS)
+    spec_t = dataclasses.replace(
+        tpresets.scannet_whole_scene().model.layers[0], n_centers=N_CENTERS)
+    xyz, mask = _inputs()
+    key = jax.random.PRNGKey(5)
+    oj = jax.jit(partial(jcagq, spec=spec_j))(
+        jnp.asarray(xyz), jnp.asarray(mask), key=key)
+    ot = tcagq(torch.from_numpy(xyz), torch.from_numpy(mask), spec_t,
+               np.asarray(key))
+    return jax.tree_util.tree_map(np.asarray, oj), ot
+
+
+@pytest.mark.parametrize("field", ["point_vid", "sorted_vid", "key_table_pad",
+                                   "occupancy", "origin", "vsize"])
+def test_voxel_table_fields_bit_exact(layer0_outputs, field):
+    oj, ot = layer0_outputs
+    want = getattr(oj.table, field)
+    got = getattr(ot.table, field).numpy()
+    assert want.shape == got.shape
+    np.testing.assert_array_equal(want, got.astype(want.dtype))
+
+
+def test_seg_pos_bit_exact(layer0_outputs):
+    """Row V of the JAX seg_pos collects every non-start point through a
+    scatter declared unique, so its value is unspecified; the port writes
+    0 there. Every voxel row must match."""
+    oj, ot = layer0_outputs
+    np.testing.assert_array_equal(oj.table.seg_pos[:, :-1],
+                                  ot.table.seg_pos.numpy()[:, :-1])
+    assert (ot.table.seg_pos.numpy()[:, -1] == 0).all()
+
+
+@pytest.mark.parametrize("field", ["center_vids", "center_valid",
+                                   "neighbor_idx", "neighbor_mask",
+                                   "node_coverage", "node_xyz"])
+def test_group_fields_bit_exact(layer0_outputs, field):
+    oj, ot = layer0_outputs
+    want = getattr(oj.groups, field)
+    got = getattr(ot.groups, field).numpy()
+    assert want.shape == got.shape
+    np.testing.assert_array_equal(want, got.astype(want.dtype))
+    if field == "center_valid":     # the threshold sampler really sampled
+        assert (want.sum(-1) > N_CENTERS // 2).all()
+
+
+def test_float_fields_within_sum_order_tolerance(layer0_outputs):
+    """coord_csum is an f32 prefix sum whose order differs between XLA and
+    torch: bound by N·2⁻²⁴ of its largest partial sum. center_xyz is a
+    difference of two such rows over a count: 1e-6 absolute at scene
+    coordinates of a few meters."""
+    oj, ot = layer0_outputs
+    want, got = oj.table.coord_csum, ot.table.coord_csum.numpy()
+    tol = N * 2.0 ** -24 * np.abs(want).max()
+    assert np.abs(want - got).max() <= tol
+    np.testing.assert_allclose(ot.groups.center_xyz.numpy(),
+                               oj.groups.center_xyz, rtol=0, atol=1e-6)
+
+
+def test_capacity_stats_match(layer0_outputs):
+    oj, ot = layer0_outputs
+    st = tvox.capacity_stats(ot.table)
+    stored = oj.table.occupancy.sum(-1)
+    total = (oj.table.point_vid < 64 ** 3).sum(-1)
+    np.testing.assert_array_equal(st["stored_points"].numpy(), stored)
+    np.testing.assert_array_equal(st["total_points"].numpy(), total)
+    np.testing.assert_array_equal(st["total_points"].numpy(), [N, N - 300])
+
+
+def test_coverage_codec_exhaustive():
+    """encode over every count 0..2¹⁷, decode over all 64 codes."""
+    counts = np.arange(2 ** 17 + 1, dtype=np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jvox.encode_coverage(jnp.asarray(counts))),
+        tvox.encode_coverage(torch.from_numpy(counts).long()).numpy())
+    codes = np.arange(64, dtype=np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jvox.decode_coverage(jnp.asarray(codes))),
+        tvox.decode_coverage(torch.from_numpy(codes).long()).numpy())
+
+
+def test_unported_builds_raise():
+    xyz = torch.zeros((1, 8, 3))
+    mask = torch.ones((1, 8), dtype=torch.bool)
+    with pytest.raises(NotImplementedError):
+        tvox.build_voxel_table(xyz, mask, 4, 4, np.zeros(2, np.uint32))

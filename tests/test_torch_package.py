@@ -1,0 +1,129 @@
+"""Package-level properties of the port: it stands alone (no JAX, nothing
+of the JAX package), builds nothing at import, runs on CUDA unless asked
+for the CPU, and carries its own copies of configs and data."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import gridgcn_torch
+from gridgcn_torch.configs import base as tbase
+from gridgcn_torch.configs import presets as tpresets
+
+torch.set_num_threads(1)
+
+PKG = Path(gridgcn_torch.__file__).resolve().parent
+REPO = PKG.parent
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for p in PKG.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_imports_no_jax_and_nothing_of_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'gridgcn_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 15
+
+
+def test_sources_never_name_the_jax_package():
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+    assert any(p.suffix == ".cu" for p in files)
+    for p in files:
+        text = p.read_text()
+        assert "gridgcn_tpu" not in text, p
+        assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b",
+                             text, re.M), p
+
+
+def test_kernels_import_calls_no_nvcc():
+    """Importing the kernel module (in a fresh interpreter) starts no
+    process and builds nothing; the launch counters start at 0."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'process started at import: {a}')\n"
+        "subprocess.Popen = subprocess.run = refuse\n"
+        "import gridgcn_torch.kernels.knn as knn\n"
+        "assert knn.knn3_mxu.launches == 0 == knn.knn3_exact.launches\n"
+        "assert not knn._libs\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from gridgcn_torch.api import Predictor
+    from gridgcn_torch.models.build import init_model
+
+    cfg = tpresets.get("synthetic_tiny_seg")
+    ups = tuple(dataclasses.replace(u, method="pallas")
+                for u in cfg.model.up_layers)
+    layers = tuple(dataclasses.replace(l, approx_select=True)
+                   for l in cfg.model.layers)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, up_layers=ups, layers=layers))
+    _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(cfg, sd)
+    pred = Predictor(cfg, sd, device="cpu")
+    xyz = np.random.default_rng(0).uniform(-1, 1, (256, 3))
+    out = pred(xyz)
+    assert out.shape == (256, cfg.model.num_classes)
+    assert np.isfinite(out).all()
+
+
+def test_unported_entry_points_raise():
+    from gridgcn_torch import api
+    from gridgcn_torch.models.build import build_model
+
+    with pytest.raises(NotImplementedError):
+        api.load_predictor("checkpoints")
+    with pytest.raises(NotImplementedError):
+        build_model(tpresets.get("synthetic_tiny").model)
+    with pytest.raises(NotImplementedError):
+        build_model(tpresets.get("synthetic_tiny_seg").model)   # method=auto
+
+
+def test_configs_are_a_copy_of_the_jax_presets():
+    from gridgcn_tpu.configs import base as jbase
+    from gridgcn_tpu.configs import presets as jpresets
+
+    assert sorted(tpresets.PRESETS) == sorted(jpresets.PRESETS)
+    for name in jpresets.PRESETS:
+        assert tbase.to_dict(tpresets.get(name)) == \
+            jbase.to_dict(jpresets.get(name)), name
+    cfg = tbase.apply_overrides(tpresets.get("scannet_whole_scene"),
+                                {"data.batch_size": 2})
+    assert cfg.data.batch_size == 2
+    assert tbase.from_json(tbase.to_json(cfg)) == cfg
+
+
+def test_synthetic_scene_is_a_copy():
+    from gridgcn_tpu.data.synthetic import synthetic_scene_surface as jscene
+    from gridgcn_torch.data.synthetic import synthetic_scene_surface
+
+    for seed in (0, 7):
+        np.testing.assert_array_equal(synthetic_scene_surface(4096, seed),
+                                      jscene(4096, seed))
+    a, la = synthetic_scene_surface(1000, 3, return_labels=True)
+    b, lb = jscene(1000, 3, return_labels=True)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(la, lb)
