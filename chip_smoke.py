@@ -5,11 +5,15 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from the checkout's sources (nvcc);
-  3. kernel phase: each flash-kNN kernel against its plain version on the
-     main path's four decoder calls (the served model's encoder output on
-     an 81920-point scene) and two ragged, masked shapes, with CUDA-event
-     times of kernel, plain version and a library yardstick;
+  2. build the CUDA kernels from the checkout's sources (nvcc), print the
+     registers and spills of each, and require no spills in the two main
+     kernels;
+  3. kernel phase: each flash-kNN kernel (and knn3_mxu's support pack)
+     against its plain version on the main path's four decoder calls (the
+     served model's encoder output on an 81920-point scene), two ragged,
+     masked shapes and one on a 2^-6 grid where knn3_mxu must be bit
+     exact, with CUDA-event times of kernel, plain version and a library
+     yardstick, and the host cost of one small call;
   4. correctness: the served forward on the card against the same forward
      on the CPU (plain versions), at full width on a small scene (f32) and
      on the full 81920-point scene (bf16, the preset's dtype);
@@ -58,6 +62,35 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, calls: int = 200, reps: int = 5) -> list[float]:
+    """Host microseconds per call over `calls` calls with no sync between
+    them, then one: what a small call costs the caller; `reps` times."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    return out
+
+
+def spills(log: str) -> dict[str, tuple[int, int]]:
+    """{kernel: (spill store bytes, spill load bytes)} from nvcc's
+    `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and name is not None:
+            words = line.replace(",", " ").split()
+            out[name] = (int(words[words.index("spill") - 2]),
+                         int(words[words.index("loads") - 3]))
+    return out
+
+
 def decoder_inputs(torch, cfg, sd, xyz, jaxrng, fold_inference,
                    build_model):
     """The main path's four decoder kNN calls on one scene, as the served
@@ -93,21 +126,45 @@ def ragged_inputs(torch, nq, ns, ns_valid, seed):
     return q, qm, s, sm
 
 
+def grid_inputs(torch, nq, ns, seed):
+    """Queries and supports on the 2^-6 grid in [0, 1), every support
+    valid, the last tenth of the queries masked. Centered, each coordinate
+    is a multiple of 2^-7 below 1, so its bf16 split is exact, and every
+    product and partial sum of knn3_mxu's 16 terms is a multiple of 2^-14
+    below 16: exact in f32 in any order. knn3_mxu must then equal its
+    plain version bit for bit, exact ties included."""
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.randint(0, 64, (nq, 3), generator=g) / 64.0).cuda()
+    s = (torch.randint(0, 64, (ns, 3), generator=g) / 64.0).cuda()
+    qm = (torch.arange(nq) < nq - nq // 10).cuda()
+    sm = torch.ones(ns, dtype=torch.bool, device="cuda")
+    return q, qm, s, sm
+
+
 def kernel_phase(torch, knn, cases):
     """Each kernel against its plain version on the card, on each
-    (args, ragged) case; returns per-kernel totals over the non-ragged
-    cases (one forward's four decoder calls)."""
+    (args, kind) case, kind "main" (one of the main path's decoder calls),
+    "ragged" or "grid" (knn3_mxu bit exact); returns per-kernel totals over
+    the main cases (one forward's four decoder calls)."""
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
            for k in ("knn3_mxu", "knn3_exact")}
-    for args, ragged in cases:
+    largest = max(a[0].shape[0] * a[2].shape[0] for a, _ in cases)
+    for args, kind in cases:
         q, qm, s, sm = args
         nq, ns = q.shape[0], s.shape[0]
         de, ie, ve = knn.knn3_exact(*args)
         dx, ix, vx = knn.knn3_exact_ref(*args)
         dm, im, vm = knn.knn3_mxu(*args)
         dr, ir, vr = knn.knn3_mxu_ref(*args)
+        pk, pr = knn.mxu_pack_support(s, sm), knn.mxu_pack_support_ref(s, sm)
         torch.cuda.synchronize()
+        assert torch.equal(pk, pr), \
+            f"mxu pack differs from its plain version at Ns {ns}"
+        if kind == "grid":
+            assert torch.equal(dm.view(torch.int32), dr.view(torch.int32)) \
+                and torch.equal(im, ir) and torch.equal(vm, vr), \
+                f"knn3_mxu not bit exact on the grid case {nq}x{ns}"
         # knn3_exact: bit for bit
         assert torch.equal(de.view(torch.int32), dx.view(torch.int32)), \
             f"knn3_exact d2 differs from its plain version at {nq}x{ns}"
@@ -131,6 +188,10 @@ def kernel_phase(torch, knn, cases):
         assert recall >= 0.97 and top1 >= 0.99 and err_exact < 2e-2, \
             (f"knn3_mxu vs exact at {nq}x{ns}: recall {recall} top1 {top1} "
              f"err {err_exact}")
+        if nq * ns == largest:
+            assert recall >= 0.997 and top1 >= 0.995 and err_exact <= 1e-3, \
+                (f"knn3_mxu vs exact at {nq}x{ns}: recall {recall} top1 "
+                 f"{top1} err {err_exact}")
 
         pairs = nq * ns
         io_bytes = nq * (12 + 1) + ns * (12 + 1) + nq * 3 * (4 + 4 + 1)
@@ -145,6 +206,9 @@ def kernel_phase(torch, knn, cases):
             "knn3_exact": cuda_ms(torch, lambda: knn.knn3_exact_ref(*args),
                                   3, 1),
         }
+        pack_ms = cuda_ms(torch, lambda: knn.mxu_pack_support(s, sm), 20)
+        pack_plain = cuda_ms(torch, lambda: knn.mxu_pack_support_ref(s, sm),
+                             3, 1)
         library = cuda_ms(torch, lambda: torch.topk(
             torch.cdist(q, s), 3, dim=-1, largest=False), 3, 1)
         # bytes: inputs read once, outputs written once; operations: 16
@@ -156,12 +220,12 @@ def kernel_phase(torch, knn, cases):
         errs = {"knn3_mxu": err_plain,
                 "knn3_exact": (de - dx).abs().max().item()}
         for k in tot:
-            print(f"kernel {k} {nq}x{ns}{' ragged' if ragged else ''}: "
+            print(f"kernel {k} {nq}x{ns} {kind}: "
                   f"ms {times[k]:.4f} plain_ms {plain[k]:.4f} "
                   f"library_ms {library:.4f} bound_ms {bounds[k]:.5f} "
                   f"max_abs_err {errs[k]:.3g}")
             tot[k]["max_abs_err"] = max(tot[k]["max_abs_err"], errs[k])
-            if not ragged:
+            if kind == "main":
                 tot[k]["ms"] += times[k]
                 tot[k]["plain_ms"] += plain[k]
                 tot[k]["library_ms"] += library
@@ -169,7 +233,16 @@ def kernel_phase(torch, knn, cases):
                 tot[k]["bytes_ms"] += bytes_ms
                 tot[k]["ops_ms"] += ops_ms[k]
         print(f"  mxu: recall {recall:.5f} top1 {top1:.5f} vs-exact err "
-              f"{err_exact:.3g}; vs-plain agree {agree:.6f}")
+              f"{err_exact:.3g}; vs-plain agree {agree:.6f}; its support "
+              f"pack alone ms {pack_ms:.4f} (plain {pack_plain:.4f}), bit "
+              f"exact")
+    args = next(a for a, kind in cases if kind == "main")
+    for k in tot:
+        fn = getattr(knn, k)
+        us = host_us(torch, lambda: fn(*args))
+        print(f"host cost of one {k} call at {args[0].shape[0]}x"
+              f"{args[2].shape[0]}: median {statistics.median(us):.2f} us, "
+              f"min {min(us):.2f} us (5 x 200 calls, no sync between them)")
     return tot
 
 
@@ -220,6 +293,7 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     torch.cuda.reset_peak_memory_stats()
     knn.knn3_mxu.launches = 0
     knn.knn3_exact.launches = 0
+    knn.mxu_pack_support.launches = 0
     lat, wall = [], []
     for xyz in scenes:
         start = torch.cuda.Event(enable_timing=True)
@@ -240,6 +314,7 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
                 "knn3_exact": knn.knn3_exact.launches}
     forwards = len(scenes) + 2
     assert launches["knn3_mxu"] == 4 * forwards, launches
+    assert knn.mxu_pack_support.launches == 4 * forwards
     peak = torch.cuda.max_memory_allocated()
     print(f"serving: {forwards} forwards, launches {launches}; per-scene "
           f"latency median {statistics.median(lat):.3f} ms (CUDA events; "
@@ -305,8 +380,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "Compiling" in line or "smem" in line:
+            if ("registers" in line or "Compiling" in line or "smem" in line
+                    or "spill" in line):
                 print(f"  {src}: {line.strip()}")
+    spilled = {k: v for k, v in spills(logs["knn.cu"]).items()
+               if ("knn3_mxu_kernel" in k or "knn3_exact_kernel" in k)}
+    assert len(spilled) >= 4 and not any(any(v) for v in spilled.values()), \
+        f"main kernels spill or are missing from the report: {spilled}"
 
     cfg = presets.scannet_whole_scene()
     _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
@@ -315,9 +395,10 @@ def main() -> int:
                                 jaxrng, fold_inference, build_model)
     assert [(a[0].shape[0], a[2].shape[0]) for a in main_calls] == \
         [(512, 128), (2048, 512), (8192, 2048), (81920, 8192)]
-    cases = [(a, False) for a in main_calls] + [
-        (ragged_inputs(torch, 1000, 700, 693, 1), True),
-        (ragged_inputs(torch, 300, 200, 2, 2), True)]
+    cases = [(a, "main") for a in main_calls] + [
+        (ragged_inputs(torch, 1000, 700, 693, 1), "ragged"),
+        (ragged_inputs(torch, 300, 200, 2, 2), "ragged"),
+        (grid_inputs(torch, 4096, 2048, 3), "grid")]
     totals = kernel_phase(torch, knn, cases)
 
     correctness_phase(torch, np, Predictor, cfg, sd, synthetic_scene_surface,

@@ -2,24 +2,50 @@
 //
 // Built by gridgcn_torch/kernels/knn.py at first CUDA use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libknn-<hash>.so knn.cu
-// Plain C interface, loaded with ctypes. Each launch function enqueues one
-// kernel on the caller's stream, does not synchronise, allocates nothing,
-// and returns cudaGetLastError() so that a refused launch is reported.
+//        -Xcompiler -fPIC -Xptxas -v -o libknn-<hash>.so knn.cu
+// Plain C interface, loaded with ctypes. Each launch function enqueues its
+// kernels on the caller's stream, does not synchronise, allocates nothing
+// (the wrapper allocates outputs and scratch), and returns
+// cudaGetLastError() so that a refused launch is reported.
 //
 // Both kernels keep the [Nq, Ns] distance matrix out of device memory, as
-// the TPU kernels did: one thread owns one query, walks every support
-// column in ascending order and keeps its 3 nearest in registers. Support
-// tiles are staged through shared memory, where all threads of a warp read
-// the same column (a broadcast, no bank conflicts).
+// the TPU kernels did, and keep a running top-3 per query in registers.
+// At the main path's largest call (Nq 81920 x Ns 8192, 6.7e8 pairs) the
+// inputs and outputs are ~5 MB (~1.5 us at 3.35 TB/s), so both kernels are
+// bound by operations, not by memory:
 //
-// Bound on the H100 at the main path's largest call (Nq 81920 x Ns 8192,
-// 6.7e8 pairs): the inputs and outputs are ~5 MB (~1.5 us at 3.35 TB/s),
-// so both kernels are bound by operations -- the per-pair distance
-// arithmetic and the top-3 compare -- not by memory. This first version
-// runs them on the CUDA cores; the K=16 split-bf16 contraction of
-// knn3_mxu is exactly one mma.sync.m16n8k16 tile, the natural redesign
-// for a later version.
+// * knn3_mxu (replaces the JAX package's ops/pallas/knn.py _knn_kernel_mxu)
+//   runs the K=16 split-bf16 contraction on the tensor cores, one
+//   mma.sync.m16n8k16 per 16 queries x 8 supports: 32 bf16 flop/pair at
+//   989 TFLOP/s is 22 us. Selection needs at least one CUDA-core compare per
+//   pair, ~20-25 us over 6.7e8 pairs on 132 SMs x 128 lanes, so a lane first
+//   tests the smaller of its two new values against the row's threshold
+//   and inserts only when one passes. A one-block pack kernel centers and
+//   packs the supports once per call, in the order in which the B fragments
+//   are read, so the main kernel only streams them through shared memory
+//   (cp.async, double-buffered). The support axis is split across the warps
+//   of a block when there are too few queries to fill the card.
+// * knn3_exact (replaces _knn_kernel) stays fp32 on the CUDA cores with each
+//   operation rounded on its own (8 flop/pair at 67 TFLOP/s is 82 us; each
+//   of those takes a dispatch slot of its own, as do the key's pack and the
+//   compare). Each thread owns 4 queries, so one shared-memory support load
+//   feeds four independent chains, and a group of G lanes shares them and
+//   splits the support columns, with G chosen so that the small decoder
+//   calls fill the card too. A pair costs its 8 rounded operations and one
+//   float compare against the threshold; the key's pack, the mask and the
+//   insert (a branch-free min/max network) run only when one passes.
+//
+// The top-3 insert is a divergent branch, and what it costs depends on how
+// often it is taken. The decoder's supports come sorted by voxel, so a scan
+// in column order approaches each query slab by slab and finds a new
+// third-nearest at almost every step. Both kernels therefore visit the
+// columns in the order p -> p * step mod n (visit_step: step ~ 5n/8, coprime
+// to n), which spreads consecutive visits over the whole scene, and test
+// each candidate against a threshold that the lanes sharing a query agree
+// on (the smallest of their third-best values): nothing above it can reach
+// the merged top-3. Out-of-order visits keep knn3_mxu's tie rule (the lower
+// column first) by comparing (value, column) pairs; knn3_exact's keys are
+// unique.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,53 +53,72 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // queries per block, one per thread
-constexpr int kTileExact = 1024;     // support columns per staged tile
-constexpr int kTileMxu = 512;        // 512 columns x 16 rows x 4 B = 32 KB
+constexpr int kExactThreads = 256;   // knn3_exact: 8 warps a block
+constexpr int kQ = 4;                // knn3_exact: queries per thread
+constexpr int kShare = 32;           // knn3_exact: visits between agreements
+constexpr int kMxuWarps = 4;         // knn3_mxu: 4 warps, 32 queries each
+constexpr int kMxuThreads = 32 * kMxuWarps;
+constexpr int kPackThreads = 1024;   // the one-block support pack
+constexpr int kTileExact = 2048;     // exact: 2048 columns x 16 B = 32 KB
+constexpr int kStageCols = 512;      // mxu: 512 columns x 32 B = 16 KB
+constexpr int kRefresh = 4;          // mxu: n8 tiles between threshold updates
 constexpr float kBig = 1e30f;        // distance of a masked support
 constexpr float kValidMax = 5e29f;   // d2 below this is a real neighbor
+constexpr int kKeyMax = 0x7FFFFFFF;
+constexpr int kMasked = static_cast<int>(0x80000000u);  // staged column flag
 
-// Running top-3 of unique int32 keys, ascending: equal to three min passes
-// that each exclude the earlier winners.
-__device__ __forceinline__ void insert3(int key, int& k0, int& k1, int& k2) {
-  if (key < k2) {
-    if (key < k1) {
-      k2 = k1;
-      if (key < k0) {
-        k1 = k0;
-        k0 = key;
-      } else {
-        k1 = key;
-      }
-    } else {
-      k2 = key;
+// a * b mod n for 0 <= a < n + 256 and 0 <= b < n: a 32-bit remainder
+// where the product fits (a 64-bit one is a slow library routine)
+__host__ __device__ __forceinline__ int mul_mod(int a, int b, int n) {
+  if (n <= 46340) return static_cast<int>(static_cast<unsigned>(a) * b % n);
+  return static_cast<int>(static_cast<long long>(a) * b % n);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// The visit order's step for n columns (or n8 tiles): an odd number near
+// 5n/8 that is coprime to n, so p -> p * step mod n is a bijection that
+// puts consecutive visits far apart. kernels/knn.py visit_step is the same.
+int visit_step(int n) {
+  int a = (n * 5) / 8 | 1;
+  for (;;) {
+    int x = a, y = n;
+    while (y != 0) {
+      const int r = x % y;
+      x = y;
+      y = r;
     }
+    if (x == 1) return a;
+    a += 2;
   }
 }
 
-// Running top-3 of (value, column), ascending. Columns arrive in ascending
-// order and the compare is strict, so a tie keeps the lower column first.
-__device__ __forceinline__ void insert3f(float d, int i, float& d0, int& i0,
-                                         float& d1, int& i1, float& d2,
-                                         int& i2) {
-  if (d < d2) {
-    if (d < d1) {
-      d2 = d1;
-      i2 = i1;
-      if (d < d0) {
-        d1 = d0;
-        i1 = i0;
-        d0 = d;
-        i0 = i;
-      } else {
-        d1 = d;
-        i1 = i;
-      }
-    } else {
-      d2 = d;
-      i2 = i;
-    }
-  }
+// (bits & hi) | col in one LOP3 (col has no bit of hi); the compiler
+// emits two
+__device__ __forceinline__ int pack_key(int bits, int hi, int col) {
+  int k;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(k) : "r"(bits), "r"(hi),
+      "r"(col));
+  return k;
+}
+
+// Running top-3 of unique int32 keys k0 < k1 < k2, equal to three min
+// passes that each exclude the earlier winners: a min/max network, no
+// branch.
+__device__ __forceinline__ void insert3(int key, int& k0, int& k1, int& k2) {
+  const int u0 = max(k0, key);
+  k0 = min(k0, key);
+  const int u1 = max(k1, u0);
+  k1 = min(k1, u0);
+  k2 = min(k2, u1);
 }
 
 // knn3_exact -- replaces the JAX package's ops/pallas/knn.py _knn_kernel
@@ -86,56 +131,133 @@ __device__ __forceinline__ void insert3f(float d, int i, float& d0, int& i0,
 //   d2 = bits(key & ~low), as the TPU kernel returns them.
 // With fewer than 3 valid supports the invalid slots hold the lowest
 // masked or padded columns (possibly >= Ns), as in the reference.
-__global__ void __launch_bounds__(kThreads)
+//
+// Staged tile slot t of the tile at c0 holds column c = (c0 + t) * step
+// mod ns_pad as {x, y, z, c}, with the sign bit of c set where the column
+// is masked or padded. G consecutive lanes share kQ = 4 queries of the
+// block (so one shared-memory load feeds 4 chains); lane l of the group
+// visits slots l, l+G, ... . A pair's d2 first meets a float test that
+// passes every key at or below the group's third-best key once the low
+// idx_bits are cut (and NaN): only then are the mask, the key and the
+// insert computed. The group agrees on that key every kShare visits. Keys
+// are unique, so the visit order does not matter and the group's top-3 is
+// three shuffle-min passes over the lanes' top-3s.
+template <int G>
+__global__ void __launch_bounds__(kExactThreads)
 knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
                   const float* __restrict__ s, const uint8_t* __restrict__ s_mask,
-                  int nq, int ns, int ns_pad, int idx_bits,
+                  int nq, int ns, int ns_pad, int idx_bits, int step,
                   float* __restrict__ out_d, int* __restrict__ out_i,
                   uint8_t* __restrict__ out_v) {
-  __shared__ float4 tile[kTileExact];
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  // 32 slots past the tile for the last visits' prefetch
+  __shared__ float4 tile[kTileExact + 32];
+  constexpr int kQueries = kQ * kExactThreads / G;  // per block
+  const int lig = threadIdx.x % G;                  // lane in group
+  const int q0 = blockIdx.x * kQueries + kQ * (threadIdx.x / G);
   const int low = (1 << idx_bits) - 1;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < nq) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
+  // the largest f32 whose key, cut to ~low, is at most k's (NaN for kKeyMax)
+  auto bound = [low](int k) { return __int_as_float(k | low); };
+  float p[kQ][3];
+  int key[kQ][3];
+  float tf[kQ];
+#pragma unroll
+  for (int h = 0; h < kQ; ++h) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      p[h][a] = q0 + h < nq ? q[3 * (q0 + h) + a] : 0.f;
+      key[h][a] = kKeyMax;
+    }
+    tf[h] = bound(kKeyMax);
   }
-  int k0 = 0x7FFFFFFF, k1 = 0x7FFFFFFF, k2 = 0x7FFFFFFF;
+  const int stage_step = mul_mod(kExactThreads % ns_pad, step, ns_pad);
   for (int c0 = 0; c0 < ns_pad; c0 += kTileExact) {
-    const int n = min(kTileExact, ns_pad - c0);
+    const int n = min(kTileExact, ns_pad - c0);    // a multiple of 128
     __syncthreads();
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int c = c0 + t;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    int c = mul_mod(c0 + threadIdx.x, step, ns_pad);
+    for (int t = threadIdx.x; t < n; t += kExactThreads) {
+      float4 v = make_float4(0.f, 0.f, 0.f, __int_as_float(c | kMasked));
       if (c < ns) {
         v.x = s[3 * c];
         v.y = s[3 * c + 1];
         v.z = s[3 * c + 2];
-        v.w = s_mask[c] ? 1.f : 0.f;
+        if (s_mask[c]) v.w = __int_as_float(c);
       }
       tile[t] = v;
+      c += stage_step;
+      if (c >= ns_pad) c -= ns_pad;
     }
     __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      const float4 v = tile[t];
-      const float dx = __fsub_rn(qx, v.x);
-      const float dy = __fsub_rn(qy, v.y);
-      const float dz = __fsub_rn(qz, v.z);
-      float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                           __fmul_rn(dz, dz));
-      d2 = v.w > 0.5f ? d2 : kBig;
-      insert3((__float_as_int(d2) & ~low) | (c0 + t), k0, k1, k2);
+    float4 next = tile[lig];
+#pragma unroll 4
+    for (int i = 0; i < n / G; ++i) {
+      const float4 v = next;
+      next = tile[lig + (i + 1) * G];
+      float d[kQ];
+      bool pass = false;
+#pragma unroll
+      for (int h = 0; h < kQ; ++h) {
+        const float dx = __fsub_rn(p[h][0], v.x);
+        const float dy = __fsub_rn(p[h][1], v.y);
+        const float dz = __fsub_rn(p[h][2], v.z);
+        d[h] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                         __fmul_rn(dz, dz));
+        pass |= !(d[h] > tf[h]);
+      }
+      if (pass) {
+        const int w = __float_as_int(v.w);
+        const int col = w & low;
+#pragma unroll
+        for (int h = 0; h < kQ; ++h) {
+          const float dm = w >= 0 ? d[h] : kBig;
+          insert3(pack_key(__float_as_int(dm), ~low, col), key[h][0],
+                  key[h][1], key[h][2]);
+        }
+      }
+      if (i % kShare == kShare - 1) {
+        // the group's lowest third-best key bounds what can still enter
+#pragma unroll
+        for (int h = 0; h < kQ; ++h) {
+          int k = key[h][2];
+#pragma unroll
+          for (int off = G / 2; off > 0; off >>= 1) {
+            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, off));
+          }
+          tf[h] = bound(k);
+        }
+      }
     }
   }
-  if (qi < nq) {
+  // merge the group's G lists: each pass takes the smallest head and the
+  // lane that holds it moves on to its next key
+  int top[kQ][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int h = 0; h < kQ; ++h) {
+      int m = key[h][0];
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) {
+        m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+      }
+      if (key[h][0] == m) {
+        key[h][0] = key[h][1];
+        key[h][1] = key[h][2];
+        key[h][2] = kKeyMax;
+      }
+      top[h][j] = m;
+    }
+  }
+  if (lig != 0) return;
+#pragma unroll
+  for (int h = 0; h < kQ; ++h) {
+    const int qi = q0 + h;
+    if (qi >= nq) continue;
     const bool qv = q_mask[qi] != 0;
-    const int keys[3] = {k0, k1, k2};
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float d = __int_as_float(keys[j] & ~low);
+      const float d = __int_as_float(top[h][j] & ~low);
       out_d[3 * qi + j] = d;
-      out_i[3 * qi + j] = keys[j] & low;
+      out_i[3 * qi + j] = top[h][j] & low;
       out_v[3 * qi + j] = (qv && d < kValidMax) ? 1 : 0;
     }
   }
@@ -153,16 +275,36 @@ __device__ __forceinline__ float sq_norm(float x, float y, float z) {
                    __fmul_rn(z, z));
 }
 
-// Center of the valid supports' bounding box, c = (min + max) / 2 per axis
-// (0 when no support is valid), reduced by the whole block; every thread
-// returns it. The same value as kernels/knn.py mxu_center.
-__device__ void support_center(const float* __restrict__ s,
-                               const uint8_t* __restrict__ s_mask, int ns,
-                               float c[3]) {
-  __shared__ float red[2][3][kThreads / 32];
+// Two bf16 in one register, `lo` in the low half: the element with the
+// lower K (or N) index of an mma fragment pair. Both values are already
+// bf16, so the conversion is exact.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// mxu_pack -- once per knn3_mxu call, one block: the center c of the valid
+// supports' bounding box, (min + max) / 2 per axis (0 when no support is
+// valid), as kernels/knn.py mxu_center computes it, and every support
+// column packed as kernels/knn.py mxu_pack packs it, moved by c first, in
+// the visit order: packed n8 tile p holds the columns of tile p * step mod
+// (ns_pad / 8). Each column is
+//   s col: [-2s_hi; -2s_hi; -2s_lo; 1 1; sn_hi sn_lo; 0 0 0], sn = |s|^2
+// (sn = 1e30 for masked supports; padded columns Ns <= col < ns_pad carry
+// only sn_hi = bf16(1e30)). Packed column pc's 16 bf16 (32 B) sit at
+// pack[2pc], pack[2pc + 1] in mma fragment order: positions 4t..4t+3 hold
+// K = 2t, 2t+1, 2t+8, 2t+9, the b0 and b1 registers of the lane with
+// threadID_in_group t, so one 8-byte load per lane reads both. center[0..2]
+// = c, center[3] = 0.
+__global__ void __launch_bounds__(kPackThreads)
+mxu_pack_kernel(const float* __restrict__ s, const uint8_t* __restrict__ s_mask,
+                int ns, int ns_pad, int step, uint4* __restrict__ pack,
+                float* __restrict__ center) {
+  __shared__ float red[2][3][kPackThreads / 32];
+  __shared__ float cen[3];
   const float inf = __int_as_float(0x7F800000);
   float mn[3] = {inf, inf, inf}, mx[3] = {-inf, -inf, -inf};
-  for (int i = threadIdx.x; i < ns; i += kThreads) {
+  for (int i = threadIdx.x; i < ns; i += kPackThreads) {
     if (s_mask[i]) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
@@ -178,133 +320,333 @@ __device__ void support_center(const float* __restrict__ s,
       mx[a] = fmaxf(mx[a], __shfl_xor_sync(0xFFFFFFFFu, mx[a], off));
     }
   }
-  const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      red[0][a][warp] = mn[a];
-      red[1][a][warp] = mx[a];
+      red[0][a][threadIdx.x / 32] = mn[a];
+      red[1][a][threadIdx.x / 32] = mx[a];
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
+  if (threadIdx.x < 3) {
+    const int a = threadIdx.x;
     float lo = inf, hi = -inf;
-    for (int w = 0; w < kThreads / 32; ++w) {
+    for (int w = 0; w < kPackThreads / 32; ++w) {
       lo = fminf(lo, red[0][a][w]);
       hi = fmaxf(hi, red[1][a][w]);
     }
-    c[a] = lo <= hi ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : 0.f;
+    const float c = lo <= hi ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : 0.f;
+    cen[a] = c;
+    center[a] = c;
+    if (a == 0) center[3] = 0.f;
   }
+  __syncthreads();
+  const float big_hi = __bfloat162float(__float2bfloat16_rn(kBig));
+  const int ntiles = ns_pad / 8;
+  for (int pc = threadIdx.x; pc < ns_pad; pc += kPackThreads) {
+    const int c = mul_mod(pc / 8, step, ntiles) * 8 + pc % 8;
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+    if (c < ns) {
+      const float x = __fsub_rn(s[3 * c], cen[0]);
+      const float y = __fsub_rn(s[3 * c + 1], cen[1]);
+      const float z = __fsub_rn(s[3 * c + 2], cen[2]);
+      const float xs[3] = {x, y, z};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float hi, lo;
+        split_bf16(xs[a], hi, lo);
+        v[a] = -2.f * hi;
+        v[3 + a] = -2.f * hi;
+        v[6 + a] = -2.f * lo;
+      }
+      v[9] = 1.f;
+      v[10] = 1.f;
+      split_bf16(s_mask[c] ? sq_norm(x, y, z) : kBig, v[11], v[12]);
+    } else {
+      v[11] = big_hi;
+    }
+    uint32_t w[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      w[2 * t] = bf16x2(v[2 * t], v[2 * t + 1]);
+      w[2 * t + 1] = bf16x2(v[2 * t + 8], v[2 * t + 9]);
+    }
+    pack[2 * pc] = make_uint4(w[0], w[1], w[2], w[3]);
+    pack[2 * pc + 1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// (d, i) before (e, j) in the order of three first-occurrence argmin passes
+__device__ __forceinline__ bool before(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+// Top-3 merge of lists from disjoint column sets, lexicographic.
+__device__ __forceinline__ void merge3(float d, int i, float (&v)[3],
+                                       int (&id)[3]) {
+  if (before(d, i, v[2], id[2])) {
+    if (before(d, i, v[1], id[1])) {
+      v[2] = v[1];
+      id[2] = id[1];
+      if (before(d, i, v[0], id[0])) {
+        v[1] = v[0];
+        id[1] = id[0];
+        v[0] = d;
+        id[0] = i;
+      } else {
+        v[1] = d;
+        id[1] = i;
+      }
+    } else {
+      v[2] = d;
+      id[2] = i;
+    }
+  }
+}
+
+// The query row of the K=16 product, as kernels/knn.py mxu_pack packs it
+// after moving q by the support center c:
+//   q row: [q_hi | q_lo | q_hi | qn_hi qn_lo | 1 1 | 0 0 0],  qn = |q|^2+1
+// so that row . col = d2 + 1. Rows past nq take q = c.
+__device__ __forceinline__ void query_row(const float* __restrict__ q, int nq,
+                                          int qi, const float (&c)[3],
+                                          float (&v)[16]) {
+  float x[3] = {0.f, 0.f, 0.f};
+  if (qi < nq) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = __fsub_rn(q[3 * qi + a], c[a]);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    split_bf16(x[a], v[a], v[3 + a]);
+    v[6 + a] = v[a];
+  }
+  split_bf16(__fadd_rn(sq_norm(x[0], x[1], x[2]), 1.0f), v[9], v[10]);
+  v[11] = 1.f;
+  v[12] = 1.f;
+  v[13] = v[14] = v[15] = 0.f;
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(a), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // knn3_mxu -- replaces the JAX package's ops/pallas/knn.py _knn_kernel_mxu
 // (via flash_knn_mxu): near-exact k=3 NN from the split-bf16 expanded form.
-// Queries and supports are first moved by the same offset, the center c of
-// the valid supports' bounding box: distances do not change, and the
-// split error, which grows with |x|^2, then depends on the scene's extent
-// and not on its offset from the origin (the TPU kernel splits the raw
-// coordinates). Each query row and support column is then packed in
-// registers / shared memory exactly as kernels/knn.py mxu_pack packs them:
-//   q row: [q_hi | q_lo | q_hi | qn_hi qn_lo | 1 1 | 0 0 0],  qn = |q|^2+1
-//   s col: [-2s_hi; -2s_hi; -2s_lo; 1 1; sn_hi sn_lo; 0 0 0], sn = |s|^2
-// (sn = 1e30 for masked supports; padded columns Ns <= col < ns_pad carry
-// only sn_hi = bf16(1e30)), so their K=16 product is d2 + 1. The 16
-// products are exact in fp32 and summed by an FMA chain; the running top-3
-// is exact, ties to the lower column -- the TPU kernel's lane-fold
-// collisions (a j-th neighbor lost to a nearer one in the same lane) do not
-// happen here. Outputs: d2 = max(d2+1 - 1, 0), idx = min(col, Ns-1),
-// valid = d2 < 5e29 and the query is valid.
-__global__ void __launch_bounds__(kThreads)
+// Queries and supports are moved by the same offset, the support center c
+// (mxu_pack_kernel): distances do not change, and the split error, which
+// grows with |x|^2, then depends on the scene's extent and not on its
+// offset from the origin (the TPU kernel splits the raw coordinates).
+//
+// A warp owns 32 queries, two m16 tiles, whose A fragments it packs once in
+// registers; SPLIT warps of the block share those queries and take every
+// SPLIT-th n8 tile of each staged stage of packed columns. Per n8 tile a
+// lane loads its B fragment (8 B), runs two mma.sync (d2 + 1 of 2 x 16
+// queries x 8 supports in f32) and holds 2 columns of 4 query rows; it
+// inserts them only where the smaller passes the row's threshold, the
+// lowest third-best value of the quad's four lanes (refreshed every
+// kRefresh tiles). The top-3 is exact with ties to the lower column: every
+// insert and merge -- within the quad by shuffles, across the SPLIT warps
+// through shared memory -- orders (value, column) pairs, as three
+// first-occurrence argmin passes do. The TPU kernel's lane-fold collisions
+// (a j-th neighbor lost to a nearer one in the same lane) do not happen
+// here. Outputs: d2 = max(d2+1 - 1, 0), idx = min(col, Ns-1), valid =
+// d2 < 5e29 and the query is valid.
+template <int SPLIT>
+__global__ void __launch_bounds__(kMxuThreads, 4)
 knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
-                const float* __restrict__ s, const uint8_t* __restrict__ s_mask,
-                int nq, int ns, int ns_pad, float* __restrict__ out_d,
-                int* __restrict__ out_i, uint8_t* __restrict__ out_v) {
-  // tile[col][0..3] holds the column's 16 packed values as 4 float4
-  __shared__ float4 tile[kTileMxu][4];
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  float cen[3];
-  support_center(s, s_mask, ns, cen);
-  float qv[16];
+                const uint4* __restrict__ pack, const float* __restrict__ center,
+                int nq, int ns, int ns_pad, int step,
+                float* __restrict__ out_d, int* __restrict__ out_i,
+                uint8_t* __restrict__ out_v) {
+  // two stages of 512 packed columns; reused for the cross-warp merge
+  __shared__ __align__(16) uint4 stage[2][kStageCols * 2];
+  constexpr int kQueries = 32 * kMxuWarps / SPLIT;   // per block
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;     // mma groupID, thread in group
+  const int part = warp % SPLIT;
+  const int qw = (warp / SPLIT) * 32;       // the warp's first query, local
+  const int qbase = blockIdx.x * kQueries;
+
+  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
   {
-    float x[3] = {0.f, 0.f, 0.f};
-    if (qi < nq) {
+    const float c[3] = {center[0], center[1], center[2]};
 #pragma unroll
-      for (int a = 0; a < 3; ++a) x[a] = __fsub_rn(q[3 * qi + a], cen[a]);
-    }
+    for (int mt = 0; mt < 2; ++mt) {
+      float r0[16], r1[16];
+      query_row(q, nq, qbase + qw + 16 * mt + g, c, r0);
+      query_row(q, nq, qbase + qw + 16 * mt + g + 8, c, r1);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      split_bf16(x[a], qv[a], qv[3 + a]);
-      qv[6 + a] = qv[a];
-    }
-    split_bf16(__fadd_rn(sq_norm(x[0], x[1], x[2]), 1.0f), qv[9], qv[10]);
-    qv[11] = 1.f;
-    qv[12] = 1.f;
-    qv[13] = qv[14] = qv[15] = 0.f;
-  }
-  const float inf = __int_as_float(0x7F800000);
-  const float big_hi = __bfloat162float(__float2bfloat16_rn(kBig));
-  float d0 = inf, d1 = inf, d2 = inf;
-  int i0 = 0, i1 = 0, i2 = 0;
-  for (int c0 = 0; c0 < ns_pad; c0 += kTileMxu) {
-    const int n = min(kTileMxu, ns_pad - c0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int c = c0 + t;
-      float v[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) v[r] = 0.f;
-      if (c < ns) {
-        const float x = __fsub_rn(s[3 * c], cen[0]);
-        const float y = __fsub_rn(s[3 * c + 1], cen[1]);
-        const float z = __fsub_rn(s[3 * c + 2], cen[2]);
-        const float xs[3] = {x, y, z};
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          float hi, lo;
-          split_bf16(xs[a], hi, lo);
-          v[a] = -2.f * hi;
-          v[3 + a] = -2.f * hi;
-          v[6 + a] = -2.f * lo;
+      for (int tt = 0; tt < 4; ++tt) {
+        if (tt == t) {
+          a[mt][0] = bf16x2(r0[2 * tt], r0[2 * tt + 1]);
+          a[mt][1] = bf16x2(r1[2 * tt], r1[2 * tt + 1]);
+          a[mt][2] = bf16x2(r0[2 * tt + 8], r0[2 * tt + 9]);
+          a[mt][3] = bf16x2(r1[2 * tt + 8], r1[2 * tt + 9]);
         }
-        v[9] = 1.f;
-        v[10] = 1.f;
-        split_bf16(s_mask[c] ? sq_norm(x, y, z) : kBig, v[11], v[12]);
-      } else {
-        v[11] = big_hi;
+      }
+    }
+  }
+  // rows 2mt (query g of tile mt) and 2mt+1 (query g+8)
+  const float inf = __int_as_float(0x7F800000);
+  float bv[4][3], thr[4];
+  int bi[4][3];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    thr[r] = inf;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bv[r][k] = inf;
+      bi[r][k] = kKeyMax;
+    }
+  }
+
+  const int ntiles = ns_pad / 8;
+  const int n_stages = (ns_pad + kStageCols - 1) / kStageCols;
+  const int warp_step = SPLIT * step % ntiles;
+  auto load_stage = [&](int st) {
+    const int c0 = st * kStageCols;
+    const int n = 2 * min(kStageCols, ns_pad - c0);
+    for (int i = threadIdx.x; i < n; i += kMxuThreads) {
+      cp_async16(&stage[st & 1][i], &pack[2 * c0 + i]);
+    }
+  };
+  load_stage(0);
+  cp_async_commit();
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) load_stage(st + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int p0 = st * (kStageCols / 8);
+    const int ntile = min(kStageCols, ns_pad - st * kStageCols) / 8;
+    const uint2* buf = reinterpret_cast<const uint2*>(stage[st & 1]);
+    // the original n8 tile of packed tile p0 + j
+    int orig = mul_mod(p0 + part, step, ntiles);
+    // ntile / SPLIT is a multiple of kRefresh: ntile is a multiple of 16
+    for (int j0 = part; j0 < ntile; j0 += SPLIT * kRefresh) {
+#pragma unroll
+      for (int k = 0; k < kRefresh; ++k) {
+        const uint2 b = buf[32 * (j0 + SPLIT * k) + lane];
+        const int col = 8 * orig + 2 * t;
+        orig += warp_step;
+        if (orig >= ntiles) orig -= ntiles;
+        float d[2][4];
+        mma_bf16_16816(d[0], a[0], b.x, b.y);
+        mma_bf16_16816(d[1], a[1], b.x, b.y);
+        float m[4];
+        bool pass = false;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          m[r] = fminf(d[r / 2][2 * (r % 2)], d[r / 2][2 * (r % 2) + 1]);
+          pass |= m[r] <= thr[r];
+        }
+        if (pass) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (m[r] <= thr[r]) {
+              merge3(d[r / 2][2 * (r % 2)], col, bv[r], bi[r]);
+              merge3(d[r / 2][2 * (r % 2) + 1], col + 1, bv[r], bi[r]);
+              thr[r] = fminf(thr[r], bv[r][2]);
+            }
+          }
+        }
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        tile[t][r] = make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2],
-                                 v[4 * r + 3]);
+        float x = bv[r][2];
+        x = fminf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+        thr[r] = fminf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
       }
     }
     __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      float acc = 0.f;
+  }
+
+  // the quad's four lanes hold the same rows: merge them by shuffles
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 v = tile[t][r];
-        acc = fmaf(qv[4 * r], v.x, acc);
-        acc = fmaf(qv[4 * r + 1], v.y, acc);
-        acc = fmaf(qv[4 * r + 2], v.z, acc);
-        acc = fmaf(qv[4 * r + 3], v.w, acc);
+  for (int off = 1; off <= 2; off <<= 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float ov[3];
+      int oi[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ov[k] = __shfl_xor_sync(0xFFFFFFFFu, bv[r][k], off);
+        oi[k] = __shfl_xor_sync(0xFFFFFFFFu, bi[r][k], off);
       }
-      insert3f(acc, c0 + t, d0, i0, d1, i1, d2, i2);
-    }
-  }
-  if (qi < nq) {
-    const bool qm = q_mask[qi] != 0;
-    const float ds[3] = {d0, d1, d2};
-    const int is[3] = {i0, i1, i2};
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float d = fmaxf(ds[j] - 1.0f, 0.0f);
-      out_d[3 * qi + j] = d;
-      out_i[3 * qi + j] = min(is[j], ns - 1);
-      out_v[3 * qi + j] = (qm && d < kValidMax) ? 1 : 0;
+      for (int k = 0; k < 3; ++k) merge3(ov[k], oi[k], bv[r], bi[r]);
     }
   }
+  // then the SPLIT warps that share the queries, through shared memory
+  float* mv = reinterpret_cast<float*>(&stage[0][0]);   // [SPLIT][kQueries][3]
+  int* mi = reinterpret_cast<int*>(&stage[1][0]);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int ql = qw + 16 * (r / 2) + 8 * (r % 2) + g;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        mv[(part * kQueries + ql) * 3 + k] = bv[r][k];
+        mi[(part * kQueries + ql) * 3 + k] = bi[r][k];
+      }
+    }
+  }
+  __syncthreads();
+  const int ql = threadIdx.x;
+  const int qi = qbase + ql;
+  if (ql >= kQueries || qi >= nq) return;
+  float v[3];
+  int id[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[k] = mv[ql * 3 + k];
+    id[k] = mi[ql * 3 + k];
+  }
+#pragma unroll
+  for (int p = 1; p < SPLIT; ++p) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      merge3(mv[(p * kQueries + ql) * 3 + k], mi[(p * kQueries + ql) * 3 + k],
+             v, id);
+    }
+  }
+  const bool qm = q_mask[qi] != 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float d = fmaxf(v[k] - 1.0f, 0.0f);
+    out_d[3 * qi + k] = d;
+    out_i[3 * qi + k] = min(id[k], ns - 1);
+    out_v[3 * qi + k] = (qm && d < kValidMax) ? 1 : 0;
+  }
+}
+
+// Blocks of `queries_per_block` queries that cover nq.
+int blocks_for(int nq, int queries_per_block) {
+  return (nq + queries_per_block - 1) / queries_per_block;
 }
 
 }  // namespace
@@ -314,18 +656,73 @@ extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
                                  int nq, int ns, int ns_pad, int idx_bits,
                                  float* out_d, int* out_i, uint8_t* out_v,
                                  void* stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
-  knn3_exact_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, out_d, out_i, out_v);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int step = visit_step(ns_pad);
+  // lanes per kQ queries: the fewest that still give every SM 4 blocks
+  const int want = 4 * sm_count();
+  const int b4 = blocks_for(nq, kQ * kExactThreads / 4);
+  const int b8 = blocks_for(nq, kQ * kExactThreads / 8);
+  const int b16 = blocks_for(nq, kQ * kExactThreads / 16);
+  const int b32 = blocks_for(nq, kQ * kExactThreads / 32);
+  if (b4 >= want) {
+    knn3_exact_kernel<4><<<b4, kExactThreads, 0, st>>>(
+        q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
+        out_v);
+  } else if (b8 >= want) {
+    knn3_exact_kernel<8><<<b8, kExactThreads, 0, st>>>(
+        q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
+        out_v);
+  } else if (b16 >= want) {
+    knn3_exact_kernel<16><<<b16, kExactThreads, 0, st>>>(
+        q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
+        out_v);
+  } else {
+    knn3_exact_kernel<32><<<b32, kExactThreads, 0, st>>>(
+        q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
+        out_v);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: the packed support operand (ns_pad x 32 B), then the center
+// (16 B); 16-byte aligned
+extern "C" int mxu_pack_launch(const float* s, const uint8_t* s_mask, int ns,
+                               int ns_pad, void* scratch, void* stream) {
+  uint4* pack = static_cast<uint4*>(scratch);
+  mxu_pack_kernel<<<1, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, s_mask, ns, ns_pad, visit_step(ns_pad / 8), pack,
+      reinterpret_cast<float*>(pack + 2 * ns_pad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two launches: the support pack into `scratch` (as mxu_pack_launch), then
+// the product with its top-3.
 extern "C" int knn3_mxu_launch(const float* q, const uint8_t* q_mask,
                                const float* s, const uint8_t* s_mask,
-                               int nq, int ns, int ns_pad, float* out_d,
-                               int* out_i, uint8_t* out_v, void* stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
-  knn3_mxu_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, q_mask, s, s_mask, nq, ns, ns_pad, out_d, out_i, out_v);
+                               int nq, int ns, int ns_pad, void* scratch,
+                               float* out_d, int* out_i, uint8_t* out_v,
+                               void* stream) {
+  const int err = mxu_pack_launch(s, s_mask, ns, ns_pad, scratch, stream);
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* pack = static_cast<const uint4*>(scratch);
+  const float* center = reinterpret_cast<const float*>(pack + 2 * ns_pad);
+  const int step = visit_step(ns_pad / 8);
+  // warps sharing a query tile: the fewest that still give every SM 4
+  // blocks (each SPLIT-th n8 tile of a stage goes to one of them)
+  const int want = 4 * sm_count();
+  const int b1 = blocks_for(nq, 32 * kMxuWarps);
+  const int b2 = blocks_for(nq, 32 * kMxuWarps / 2);
+  const int b4 = blocks_for(nq, 32 * kMxuWarps / 4);
+  if (b1 >= want) {
+    knn3_mxu_kernel<1><<<b1, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  } else if (b2 >= want) {
+    knn3_mxu_kernel<2><<<b2, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  } else {
+    knn3_mxu_kernel<4><<<b4, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,23 +5,30 @@ function beside its wrapper:
 
 * `knn3_mxu` — replaces the JAX package's `ops/pallas/knn.py`
   `_knn_kernel_mxu` (via `flash_knn_mxu`), the main path's query: d² + 1
-  from one K=16 split-bf16 product (f32-grade distances), exact top-3.
-  The kernel centers and packs the operands itself, value for value as
-  `mxu_center` and `mxu_pack` do for the plain version.
+  from one K=16 split-bf16 product on the tensor cores (f32-grade
+  distances), exact top-3. Each call launches two kernels: the support
+  pack (`mxu_pack_support`: value for value `mxu_center` and `mxu_pack`,
+  each column in the B-fragment order `PACK_ORDER`) and the product with
+  its top-3.
 * `knn3_exact` — replaces `_knn_kernel` (via `flash_knn`): fp32 (q−s)²,
   bit for bit the TPU kernel's packed keys and truncated d².
 
 Dispatch is by the device of the tensors passed in: a CUDA tensor launches
 the kernel or raises, a CPU tensor runs the plain version. Nothing falls
 back. The kernels are compiled from the package's sources with `nvcc` on
-first CUDA use (`build_kernels`), never at import. Each wrapper counts its
-kernel launches in a plain integer attribute, `knn3_mxu.launches`.
+first CUDA use (`build_kernels`), never at import. Each wrapper counts the
+calls in which it launches its kernels in a plain integer attribute,
+`knn3_mxu.launches`; `knn3_mxu` also adds its pack to
+`mxu_pack_support.launches`. A call allocates twice: d2 and idx are views
+of one int32 tensor that also holds the mxu call's packed supports, valid
+is a tensor of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
@@ -39,6 +46,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # 4096 queries × 8192 supports × 4 B = 128 MB per temporary in the plain
 # versions' query chunks
 _REF_CHUNK_ELEMS = 1 << 25
+# the packed support column's 16 values in mma.m16n8k16 B-fragment order:
+# positions 4t..4t+3 hold K = 2t, 2t+1, 2t+8, 2t+9 (the b0, b1 registers
+# of the lane with threadID_in_group t)
+PACK_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -59,9 +70,9 @@ def _lib_path(source: str) -> Path:
 
 def build_kernels() -> dict[str, str]:
     """Compile every CUDA source of the package that is not built yet, one
-    `nvcc` per source, all started together. Returns {source: compiler
-    log} (the `-Xptxas -v` register and shared-memory report) for the
-    sources built by this call; raises if a build fails."""
+    `nvcc` per source, all started together; raises if a build fails.
+    Returns {source: compiler log} for every source: the `-Xptxas -v`
+    register, shared-memory and spill report, kept beside the library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for src in SOURCES:
@@ -72,14 +83,14 @@ def build_kernels() -> dict[str, str]:
         procs[src] = (out, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = {}
     for src, (out, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        logs[src] = log
-    return logs
+    return {src: _lib_path(src).with_suffix(".log").read_text()
+            for src in SOURCES}
 
 
 def _lib(source: str) -> ctypes.CDLL:
@@ -89,39 +100,86 @@ def _lib(source: str) -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.knn3_exact_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
         lib.knn3_exact_launch.restype = i
-        lib.knn3_mxu_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+        lib.knn3_mxu_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
         lib.knn3_mxu_launch.restype = i
+        lib.mxu_pack_launch.argtypes = [p, p, i, i, p, p]
+        lib.mxu_pack_launch.restype = i
         _libs[source] = lib
     return _libs[source]
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _device(*ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"inputs on different devices: "
+                             f"{[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
-def _device_kind(*ts: torch.Tensor) -> str:
-    kinds = {t.device.type for t in ts}
-    if len(kinds) != 1 or {t.device for t in ts} != {ts[0].device}:
-        raise ValueError(f"inputs on different devices: "
-                         f"{[str(t.device) for t in ts]}")
-    kind = kinds.pop()
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {ts[0].device}")
-    return kind
+def _check_supports(s_xyz, s_mask) -> int:
+    """Ns, after cheap checks of what the kernels take."""
+    ns = s_xyz.shape[0]
+    if s_xyz.dtype != torch.float32 or s_mask.dtype != torch.bool:
+        raise ValueError(f"s_xyz must be float32 and s_mask bool, got "
+                         f"{s_xyz.dtype} and {s_mask.dtype}")
+    if s_xyz.shape != (ns, 3) or s_mask.shape != (ns,):
+        raise ValueError(f"s_xyz must be [Ns, 3] and s_mask [Ns], got "
+                         f"{tuple(s_xyz.shape)} and {tuple(s_mask.shape)}")
+    if not (s_xyz.is_contiguous() and s_mask.is_contiguous()):
+        raise ValueError("s_xyz and s_mask must be contiguous")
+    if ns < 1:
+        raise ValueError("the kernels need at least one support point")
+    return ns
 
 
-def _outputs(nq: int, device) -> tuple:
-    return (torch.empty((nq, 3), dtype=torch.float32, device=device),
-            torch.empty((nq, 3), dtype=torch.int32, device=device),
-            torch.empty((nq, 3), dtype=torch.bool, device=device))
+def _check(q_xyz, q_mask, s_xyz, s_mask) -> tuple[int, int]:
+    """(Nq, Ns), after cheap checks of what the kernels take."""
+    nq = q_xyz.shape[0]
+    if q_xyz.dtype != torch.float32 or q_mask.dtype != torch.bool:
+        raise ValueError(f"q_xyz must be float32 and q_mask bool, got "
+                         f"{q_xyz.dtype} and {q_mask.dtype}")
+    if q_xyz.shape != (nq, 3) or q_mask.shape != (nq,):
+        raise ValueError(f"q_xyz must be [Nq, 3] and q_mask [Nq], got "
+                         f"{tuple(q_xyz.shape)} and {tuple(q_mask.shape)}")
+    if not (q_xyz.is_contiguous() and q_mask.is_contiguous()):
+        raise ValueError("q_xyz and q_mask must be contiguous")
+    return nq, _check_supports(s_xyz, s_mask)
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of the current stream on `dev`, without building a
+    `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _pack_bytes(ns: int) -> int:
+    """Bytes of `knn3_mxu`'s packed supports: 32 per padded column, then
+    the center (16)."""
+    return -(-ns // 128) * 128 * 32 + 16
+
+
+def _outputs(scratch_bytes: int, nq: int, like: torch.Tensor) -> tuple:
+    """Two allocations on `like`'s device: one int32 tensor whose first
+    rows hold `scratch_bytes` of kernel scratch (16-byte aligned) and whose
+    next rows are d2 f32 [nq, 3] and idx int32 [nq, 3]; valid bool [nq, 3]
+    on its own. Returns (int32 tensor, d2, idx, valid)."""
+    o = -(-scratch_bytes // 12)
+    buf = like.new_empty((o + 2 * nq, 3), dtype=torch.int32)
+    return (buf, buf[o:o + nq].view(torch.float32), buf[o + nq:],
+            like.new_empty((nq, 3), dtype=torch.bool))
+
+
+def visit_step(n: int) -> int:
+    """The step of the kernels' visit order p -> p * step mod n over n
+    columns (or n8 tiles): an odd number near 5n/8, coprime to n, so
+    consecutive visits land far apart. `knn.cu` visit_step is the same."""
+    a = (n * 5) // 8 | 1
+    while math.gcd(a, n) != 1:
+        a += 2
+    return a
 
 
 # ---------------------------------------------------------------- exact --
@@ -168,25 +226,18 @@ def knn3_exact(q_xyz, q_mask, s_xyz, s_mask):
     """Exact 3-NN: q_xyz [Nq, 3] f32, q_mask [Nq] bool, s_xyz [Ns, 3] f32,
     s_mask [Ns] bool → (d2 [Nq, 3] f32 truncated, idx [Nq, 3] int32,
     valid [Nq, 3] bool)."""
-    if _device_kind(q_xyz, q_mask, s_xyz, s_mask) == "cpu":
+    dev = _device(q_xyz, q_mask, s_xyz, s_mask)
+    if dev.type == "cpu":
         return knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask)
-    nq, ns = q_xyz.shape[0], s_xyz.shape[0]
-    _check(q_xyz, "q_xyz", torch.float32, (nq, 3))
-    _check(q_mask, "q_mask", torch.bool, (nq,))
-    _check(s_xyz, "s_xyz", torch.float32, (ns, 3))
-    _check(s_mask, "s_mask", torch.bool, (ns,))
-    if ns < 1:
-        raise ValueError("knn3_exact needs at least one support point")
-    out_d, out_i, out_v = _outputs(nq, q_xyz.device)
+    nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
+    _, out_d, out_i, out_v = _outputs(0, nq, q_xyz)
     if nq == 0:
         return out_d, out_i, out_v
     ns_pad, idx_bits = exact_layout(ns)
-    lib = _lib("knn.cu")
-    err = lib.knn3_exact_launch(
+    err = _lib("knn.cu").knn3_exact_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
         s_mask.data_ptr(), nq, ns, ns_pad, idx_bits, out_d.data_ptr(),
-        out_i.data_ptr(), out_v.data_ptr(),
-        torch.cuda.current_stream(q_xyz.device).cuda_stream)
+        out_i.data_ptr(), out_v.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn3_exact launch failed: CUDA error {err}")
     knn3_exact.launches += 1
@@ -288,31 +339,63 @@ def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask):
     """Near-exact 3-NN from split-bf16 distances: q_xyz [Nq, 3] f32,
     q_mask [Nq] bool, s_xyz [Ns, 3] f32, s_mask [Ns] bool → (d2 [Nq, 3]
     f32, idx [Nq, 3] int32, valid [Nq, 3] bool)."""
-    if _device_kind(q_xyz, q_mask, s_xyz, s_mask) == "cpu":
+    dev = _device(q_xyz, q_mask, s_xyz, s_mask)
+    if dev.type == "cpu":
         return knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask)
-    nq, ns = q_xyz.shape[0], s_xyz.shape[0]
-    _check(q_xyz, "q_xyz", torch.float32, (nq, 3))
-    _check(q_mask, "q_mask", torch.bool, (nq,))
-    _check(s_xyz, "s_xyz", torch.float32, (ns, 3))
-    _check(s_mask, "s_mask", torch.bool, (ns,))
-    if ns < 1:
-        raise ValueError("knn3_mxu needs at least one support point")
-    out_d, out_i, out_v = _outputs(nq, q_xyz.device)
+    nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
+    buf, out_d, out_i, out_v = _outputs(_pack_bytes(ns), nq, q_xyz)
     if nq == 0:
         return out_d, out_i, out_v
-    lib = _lib("knn.cu")
-    err = lib.knn3_mxu_launch(
+    err = _lib("knn.cu").knn3_mxu_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
-        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, out_d.data_ptr(),
-        out_i.data_ptr(), out_v.data_ptr(),
-        torch.cuda.current_stream(q_xyz.device).cuda_stream)
+        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, buf.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn3_mxu launch failed: CUDA error {err}")
     knn3_mxu.launches += 1
+    mxu_pack_support.launches += 1
     return out_d, out_i, out_v
 
 
 knn3_mxu.launches = 0
+
+
+def mxu_pack_support_ref(s_xyz, s_mask):
+    """Plain version of `mxu_pack_support`: `mxu_pack`'s support operand
+    for the supports moved by `mxu_center`, in the kernel's visit order
+    (packed n8 tile p holds tile `p * visit_step(n) mod n` of the n =
+    ns_pad / 8), each column's 16 bf16 in `PACK_ORDER`; then the center as
+    4 f32 (the last 0). uint8 bytes."""
+    c = mxu_center(s_xyz, s_mask)
+    _, sb, ns_pad = mxu_pack(s_xyz.new_zeros((0, 3)), s_xyz.float() - c,
+                             s_mask)
+    n = ns_pad // 8
+    tiles = torch.arange(n, device=sb.device) * visit_step(n) % n
+    cols = sb.T[:, list(PACK_ORDER)].reshape(n, 8, 16)[tiles]
+    return torch.cat([cols.contiguous().view(torch.uint8).reshape(-1),
+                      torch.cat([c, c.new_zeros(1)]).view(torch.uint8)])
+
+
+def mxu_pack_support(s_xyz, s_mask):
+    """The support operand of `knn3_mxu` as its kernel reads it: s_xyz
+    [Ns, 3] f32, s_mask [Ns] bool → uint8 [ns_pad·32 + 16]. `knn3_mxu`
+    launches the same pack kernel itself; this wrapper holds it against
+    its plain version."""
+    dev = _device(s_xyz, s_mask)
+    if dev.type == "cpu":
+        return mxu_pack_support_ref(s_xyz, s_mask)
+    ns = _check_supports(s_xyz, s_mask)
+    buf = torch.empty(_pack_bytes(ns), dtype=torch.uint8, device=dev)
+    err = _lib("knn.cu").mxu_pack_launch(
+        s_xyz.data_ptr(), s_mask.data_ptr(), ns, -(-ns // 128) * 128,
+        buf.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mxu_pack launch failed: CUDA error {err}")
+    mxu_pack_support.launches += 1
+    return buf
+
+
+mxu_pack_support.launches = 0
 
 
 # ------------------------------------------------------- 3-NN wrapper --

@@ -5,6 +5,12 @@ without one. This file imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernels pick their tiling from Nq and the card's SM count: on a
+132-SM H100, `knn3_mxu` splits the support axis over 1, 2 or 4 warps
+above 67456, 33728 and below that many queries, and `knn3_exact` gives 4
+queries 4, 8, 16 or 32 lanes above 134912, 67456, 33728 and below; the
+cases below cover each.
 """
 
 import numpy as np
@@ -23,12 +29,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, nq, ns, seed, quantum=None, ns_valid=None):
+def _inputs(dev, nq, ns, seed, quantum=None, ns_valid=None, lo=-4.0,
+            hi=9.0, duplicate=False):
+    """Uniform clouds in [lo, hi); the last tenth of the queries and the
+    supports from ns_valid on (default ns - 7) are masked. quantum rounds
+    the coordinates to its grid; duplicate makes the second half of the
+    supports a shuffled copy of the first (exact ties)."""
     rng = np.random.default_rng(seed)
-    q = rng.uniform(-4, 9, (nq, 3))
-    s = rng.uniform(-4, 9, (ns, 3))
+    q = rng.uniform(lo, hi, (nq, 3))
+    s = rng.uniform(lo, hi, (ns, 3))
+    if duplicate:
+        s[ns // 2:] = s[rng.integers(0, ns // 2, ns - ns // 2)]
     if quantum:
-        q, s = np.round(q / quantum) * quantum, np.round(s / quantum) * quantum
+        q = np.minimum(np.floor(q / quantum) * quantum, hi - quantum)
+        s = np.minimum(np.floor(s / quantum) * quantum, hi - quantum)
     qm = np.ones(nq, bool)
     qm[nq - nq // 10:] = False
     sm = np.arange(ns) < (ns - 7 if ns_valid is None else ns_valid)
@@ -37,24 +51,60 @@ def _inputs(dev, nq, ns, seed, quantum=None, ns_valid=None):
             t(sm, torch.bool))
 
 
-@pytest.mark.parametrize("nq,ns,quantum,ns_valid", [
-    (1000, 700, None, None), (4096, 2048, 2.0 ** -6, None),
-    (300, 200, None, 2)])
-def test_exact_kernel_bit_exact(cuda, nq, ns, quantum, ns_valid):
-    args = _inputs(cuda, nq, ns, nq + ns, quantum, ns_valid)
+def _bit_equal(out, ref):
+    d, i, v = out
+    dr, ir, vr = ref
+    assert torch.equal(d.view(torch.int32), dr.view(torch.int32))
+    assert torch.equal(i, ir.int()) and torch.equal(v, vr)
+
+
+# the grid case: on 2^-6 in [0, 1) with every support valid, every sum of
+# either kernel is exact, so both equal their plain versions bit for bit
+GRID = dict(quantum=2.0 ** -6, lo=0.0, hi=1.0, ns_valid=10 ** 9)
+
+
+@pytest.mark.parametrize("nq,ns,kw", [
+    (1000, 700, {}), (4096, 2048, dict(quantum=2.0 ** -6)),
+    (300, 200, dict(ns_valid=2)), (37, 5, {}), (5000, 1300, {}),
+    (4096, 2048, GRID), (3000, 900, dict(GRID, duplicate=True)),
+    (40000, 300, {}), (70000, 300, {}), (140000, 200, {}),
+    (2500, 4500, {})])
+def test_exact_kernel_bit_exact(cuda, nq, ns, kw):
+    args = _inputs(cuda, nq, ns, nq + ns, **kw)
     n0 = knn.knn3_exact.launches
-    d, i, v = knn.knn3_exact(*args)
+    out = knn.knn3_exact(*args)
     torch.cuda.synchronize()
     assert knn.knn3_exact.launches == n0 + 1
-    dr, ir, vr = knn.knn3_exact_ref(*args)
-    assert torch.equal(d.view(torch.int32), dr.view(torch.int32))
-    assert torch.equal(i, ir) and torch.equal(v, vr)
+    _bit_equal(out, knn.knn3_exact_ref(*args))
 
 
-@pytest.mark.parametrize("nq,ns", [(1000, 700), (8192, 2048)])
-def test_mxu_kernel_matches_plain_version(cuda, nq, ns):
-    """Same packing; only the f32 order of the 16-term sum differs."""
-    args = _inputs(cuda, nq, ns, nq - ns)
+@pytest.mark.parametrize("nq,ns,kw", [
+    (4096, 2048, GRID), (3000, 900, dict(GRID, duplicate=True)),
+    (1001, 5, GRID)])
+def test_mxu_kernel_bit_exact_on_exact_arithmetic(cuda, nq, ns, kw):
+    """Centered on the supports, every coordinate is a multiple of 2⁻⁷
+    below 1 in magnitude, so its bf16 split is exact, and every product
+    and partial sum of the 16 terms is a multiple of 2⁻¹⁴ below 16, which
+    f32 holds exactly: the tensor cores' summation order cannot matter,
+    and the many exact ties are resolved by the merge alone."""
+    args = _inputs(cuda, nq, ns, 3 * nq + ns, **kw)
+    n0 = (knn.knn3_mxu.launches, knn.mxu_pack_support.launches)
+    out = knn.knn3_mxu(*args)
+    torch.cuda.synchronize()
+    assert (knn.knn3_mxu.launches, knn.mxu_pack_support.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    _bit_equal(out, knn.knn3_mxu_ref(*args))
+
+
+@pytest.mark.parametrize("nq,ns,kw", [
+    (1000, 700, {}), (8192, 2048, {}), (37, 5, dict(ns_valid=3)),
+    (5000, 1300, {}),
+    (300, 200, dict(ns_valid=2)), (3000, 900, dict(duplicate=True)),
+    (40000, 300, {}), (70000, 300, {}), (140000, 200, {})])
+def test_mxu_kernel_matches_plain_version(cuda, nq, ns, kw):
+    """Same packing; only the f32 summation of the 16 products differs
+    (tensor cores against the plain version's matmul)."""
+    args = _inputs(cuda, nq, ns, nq - ns, **kw)
     d, i, v = knn.knn3_mxu(*args)
     torch.cuda.synchronize()
     dr, ir, vr = knn.knn3_mxu_ref(*args)
@@ -62,6 +112,19 @@ def test_mxu_kernel_matches_plain_version(cuda, nq, ns):
     same = (i == ir.int()) & v
     assert same.float().sum() >= 0.999 * v.float().sum()
     assert (d - dr).abs()[same].max() <= 1e-3
+    if kw.get("ns_valid") == 2:
+        assert v[:, :2].any() and not v[:, 2:].any()
+
+
+@pytest.mark.parametrize("ns,ns_valid", [(1, 1), (129, 100), (700, 693),
+                                         (8192, 8000), (300, 0)])
+def test_pack_kernel_bit_exact(cuda, ns, ns_valid):
+    _, _, s, sm = _inputs(cuda, 1, ns, ns, ns_valid=ns_valid)
+    n0 = knn.mxu_pack_support.launches
+    buf = knn.mxu_pack_support(s, sm)
+    torch.cuda.synchronize()
+    assert knn.mxu_pack_support.launches == n0 + 1
+    assert torch.equal(buf, knn.mxu_pack_support_ref(s, sm))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -72,3 +135,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         knn.knn3_exact(q.t().contiguous().t(), qm, s, sm)
     with pytest.raises(ValueError):
         knn.knn3_mxu(q, qm, s.cpu(), sm)
+    with pytest.raises(ValueError):
+        knn.knn3_exact(q, qm, s[:0], sm[:0])
+    with pytest.raises(ValueError):
+        knn.mxu_pack_support(s, sm.int())
