@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels;
   3. kernel phase: each flash-kNN kernel (and knn3_mxu's support pack)
      against its plain version on the main path's four decoder calls (the
-     served model's encoder output on an 81920-point scene), two ragged,
+     served model's encoder output on an 81920-point scene), the four of
+     one scannet_seg crop (128x32 to 8192x2048, CAS encoder), two ragged,
      masked shapes and one on a 2^-6 grid where knn3_mxu must be bit
      exact, with CUDA-event times of kernel, plain version and a library
      yardstick, and the host cost of one small call;
@@ -20,8 +21,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. serving: scannet_whole_scene at full width with seeded random weights,
      3 requests and one predict_scene(votes=2) on 81920-point scenes; the
      kernel launch counters are read around exactly this run;
-  6. one JSON line of kernels, the card line, and the final JSON line.
---profile adds a torch.profiler table of one request.
+  6. the other presets' paths, each served forward on the card against the
+     same forward on the CPU (f32 and bf16 gates, and the share of CAGQ
+     center voxels the two devices chose alike): modelnet40_cas (16 clouds
+     of 1024 points), synthetic_scene_seg (dense decoder, 4 scenes of
+     4096) and its method="grid" override; then scannet_seg (CAS,
+     knn3_mxu decoder, 2 scenes of 8192): the served forward, and the
+     decoder on the CPU's encoder levels after each layer's CAGQ is held
+     bit for bit against the CPU on the same input;
+  7. classifier serving: modelnet40_full and modelnet40_cas at full width,
+     16 clouds of 1024 points per request, in bf16 (eval_dtype);
+  8. CAS segmentation serving: scannet_seg at full width, 8 scenes of 8192
+     points per request, CAS with 3 rounds; knn3_mxu launches 4 times per
+     scene (once per decoder stage and cloud);
+  9. one JSON line of kernels, the card line, and the final JSON line.
+--profile adds torch.profiler tables of one whole-scene request and of one
+classifier request, with the classifier request's CUDA launch count.
 """
 
 from __future__ import annotations
@@ -93,14 +108,16 @@ def spills(log: str) -> dict[str, tuple[int, int]]:
 
 def decoder_inputs(torch, cfg, sd, xyz, jaxrng, fold_inference,
                    build_model):
-    """The main path's four decoder kNN calls on one scene, as the served
-    model's encoder produces them: (queries, query mask, supports, support
-    mask) per stage, (512x128, 2048x512, 8192x2048, 81920x8192)."""
+    """The four decoder kNN calls of the first cloud of a request (xyz
+    [N, 3] or [B, N, 3]), as the served model's encoder produces them:
+    (queries, query mask, supports, support mask) per stage, coarsest
+    first; (512x128, ..., 81920x8192) on a whole scene."""
     fcfg, folded = fold_inference(cfg, sd)
     model = build_model(fcfg.model)
     model.load_state_dict(folded)
     model = model.to("cuda").eval()
-    x = torch.as_tensor(xyz, device="cuda")[None]
+    x = torch.as_tensor(xyz, device="cuda")
+    x = x[None] if x.dim() == 2 else x
     feat, mask = x, torch.ones(x.shape[:2], dtype=torch.bool, device="cuda")
     key = jaxrng.PRNGKey(0)
     levels = [(x, mask)]
@@ -144,8 +161,9 @@ def grid_inputs(torch, nq, ns, seed):
 def kernel_phase(torch, knn, cases):
     """Each kernel against its plain version on the card, on each
     (args, kind) case, kind "main" (one of the main path's decoder calls),
-    "ragged" or "grid" (knn3_mxu bit exact); returns per-kernel totals over
-    the main cases (one forward's four decoder calls)."""
+    "crop" (one of a scannet_seg crop's decoder calls), "ragged" or "grid"
+    (knn3_mxu bit exact); returns per-kernel totals over the main cases
+    (one whole-scene forward's four decoder calls)."""
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
            for k in ("knn3_mxu", "knn3_exact")}
@@ -327,6 +345,237 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     return launches, statistics.median(lat)
 
 
+def _record_center_vids(run):
+    """run() with every CAGQ call's center_vids recorded, in call order."""
+    import gridgcn_torch.models.gridconv as gridconv
+
+    seen, real = [], gridconv.cagq
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out.groups.center_vids.cpu())
+        return out
+
+    gridconv.cagq = recording
+    try:
+        return run(), seen
+    finally:
+        gridconv.cagq = real
+
+
+def paths_correctness_phase(torch, np, Predictor, presets, init_model,
+                            scene_fn, jaxrng):
+    """modelnet40_cas, synthetic_scene_seg (dense decoder) and its grid
+    override, each at full width: the served forward on the card against
+    the same forward on the CPU, same weights and key. f32: argmax
+    agreement ≥ 0.999 (the classifier: every cloud) and p99.9 |Δ| ≤ 1e-3
+    of the logit range; bf16 (the preset's serving dtype): |Δ| ≤ 10% of
+    the range. The share of center voxels chosen alike is printed, not
+    gated: the Gumbel draws are the same bits on both devices, but the
+    deeper levels' centers come from barycenters summed in another order."""
+    key = jaxrng.PRNGKey(2)
+    cls_x = classifier_clouds(np, 16, 1024, seed=100)
+    scenes = np.stack([scene_fn(4096, seed=20 + i) for i in range(4)])
+    seg = presets.get("synthetic_scene_seg")
+    grid = dataclasses.replace(seg, model=dataclasses.replace(
+        seg.model, up_layers=tuple(dataclasses.replace(u, method="grid")
+                                   for u in seg.model.up_layers)))
+    cases = [("modelnet40_cas", presets.get("modelnet40_cas"), cls_x),
+             ("synthetic_scene_seg", seg, scenes),
+             ("synthetic_scene_seg grid", grid, scenes)]
+    for tag, cfg, x in cases:
+        _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, dtype=dtype, eval_dtype=""))
+            a, va = _record_center_vids(
+                lambda: Predictor(c, sd, device="cuda")(x, rng=key))
+            b, vb = _record_center_vids(
+                lambda: Predictor(c, sd, device="cpu")(x, rng=key))
+            assert a.shape == b.shape and np.isfinite(a).all(), tag
+            same = [float((u == v).float().mean()) for u, v in zip(va, vb)]
+            scale, agree, q999, dmax = _compare(np, f"{tag} {dtype}", a, b)
+            print(f"  center_vids alike per CAGQ layer: "
+                  f"{[round(v, 5) for v in same]}")
+            if dtype == "float32":
+                assert agree >= (1.0 if a.ndim == 2 else 0.999), tag
+                assert q999 <= 1e-3 * scale, tag
+            else:
+                assert dmax <= 0.1 * scale, tag
+
+
+def cas_seg_correctness_phase(torch, np, Predictor, cfg, sd, x, jaxrng,
+                              build_model, fold_inference):
+    """scannet_seg (CAS encoder, knn3_mxu decoder) on the crops x, at full
+    width, the card against the CPU with the same weights and key:
+
+    1. the served forward, f32 and bf16: |Δ| ≤ 10% of the logit range, f32
+       argmax agreement ≥ 0.99. Not the f32 gate of the other paths: the
+       barycenters come from f32 prefix sums, which the two devices add in
+       another order (a few ulps apart); a point that lands across a voxel
+       face of the next layer's grid changes that layer's coverage, and CAS
+       then picks other centers from there on.
+    2. f32 on the CPU's encoder levels: each layer's CAGQ on the card
+       against the CPU on the same input (center voxels, validity and
+       neighbors bit for bit), then the decoder (four knn3_mxu calls per
+       cloud) and head on both devices: argmax ≥ 0.999, p99.9 |Δ| ≤ 1e-3
+       of the range."""
+    from gridgcn_torch.ops.cagq import cagq
+
+    key = jaxrng.PRNGKey(2)
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, dtype=dtype, eval_dtype=""))
+        a, va = _record_center_vids(
+            lambda: Predictor(c, sd, device="cuda")(x, rng=key))
+        b, vb = _record_center_vids(
+            lambda: Predictor(c, sd, device="cpu")(x, rng=key))
+        assert a.shape == b.shape == x.shape[:2] + (21,)
+        assert np.isfinite(a).all()
+        same = [float((u == v).float().mean()) for u, v in zip(va, vb)]
+        scale, agree, _, dmax = _compare(np, f"scannet_seg served {dtype}",
+                                         a, b)
+        print(f"  center_vids alike per CAGQ layer: "
+              f"{[round(v, 5) for v in same]}")
+        assert dmax <= 0.1 * scale
+        if dtype == "float32":
+            assert agree >= 0.99
+
+    c32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32", eval_dtype=""))
+    fcfg, folded = fold_inference(c32, sd)
+    assert all(u.method == "pallas" for u in fcfg.model.up_layers)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = build_model(fcfg.model)
+        models[dev].load_state_dict(folded)
+        models[dev] = models[dev].to(dev).eval()
+    xyz = torch.as_tensor(x)
+    levels = [(xyz, xyz if fcfg.model.use_xyz_feature else None,
+               torch.ones(xyz.shape[:2], dtype=torch.bool))]
+    logits = {}
+    with torch.no_grad():
+        for i, spec in enumerate(fcfg.model.layers):
+            k = jaxrng.flax_make_rng(key, (f"gridconv{i}",), 1)
+            p, _, m = levels[-1]
+            gc = cagq(p, m, spec, k).groups
+            gg = cagq(p.cuda(), m.cuda(), spec, k).groups
+            for f in ("center_vids", "center_valid", "neighbor_idx",
+                      "neighbor_mask"):
+                assert torch.equal(getattr(gg, f).cpu(), getattr(gc, f)), \
+                    f"scannet_seg layer {i} CAGQ {f} differs on the card"
+            levels.append(models["cpu"].encode_layer(i, *levels[-1], k))
+        for dev, model in models.items():
+            lv = [tuple(None if t is None else t.to(dev) for t in level)
+                  for level in levels]
+            c_xyz, c_feat, c_mask = lv[-1]
+            for i in range(len(fcfg.model.up_layers)):
+                d_xyz, d_feat, d_mask = lv[-2 - i]
+                c_feat = model.decode_stage(i, c_xyz, c_feat, c_mask,
+                                            d_xyz, d_feat, d_mask)
+                c_xyz, c_mask = d_xyz, d_mask
+            logits[dev] = model.head_logits(c_feat).float().cpu().numpy()
+    scale, agree, q999, _ = _compare(
+        np, "scannet_seg f32 decoder on the CPU's encoder levels",
+        logits["cuda"], logits["cpu"])
+    assert agree >= 0.999 and q999 <= 1e-3 * scale
+
+
+def classifier_clouds(np, B, N, seed):
+    """B seeded clouds of N points on the surfaces of random boxes, spheres
+    and cylinders (a stand-in for ModelNet40 shapes), each in [-1, 1]³."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(B):
+        kind = rng.integers(3)
+        u = rng.normal(size=(N, 3))
+        if kind == 0:      # box: push each point to its largest axis
+            u = u / np.abs(u).max(1, keepdims=True)
+        elif kind == 1:    # sphere
+            u = u / np.linalg.norm(u, axis=1, keepdims=True)
+        else:              # cylinder about z
+            u[:, :2] /= np.linalg.norm(u[:, :2], axis=1, keepdims=True)
+            u[:, 2] = rng.uniform(-1, 1, N)
+        u = u * rng.uniform(0.4, 1.0, 3)
+        out.append(u / np.abs(u).max())
+    return np.stack(out).astype(np.float32)
+
+
+def crop_batch(np, scene_fn, B, seed):
+    """B seeded 8192-point scenes, a scannet_seg request."""
+    return np.stack([scene_fn(8192, seed=seed + i) for i in range(B)])
+
+
+def timed_requests(torch, pred, batches, check):
+    """Two warm-up requests, then one per batch: (CUDA-event ms list, host
+    wall ms list, peak MiB). check(out) asserts on each answer."""
+    for _ in range(2):
+        check(pred(batches[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, wall = [], []
+    for x in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = pred(x)
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        lat.append(start.elapsed_time(end))
+        check(out)
+    return lat, wall, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def classifier_serving_phase(torch, np, Predictor, presets, init_model):
+    """modelnet40_full and modelnet40_cas, full width, served in bf16 (their
+    eval_dtype), 16 clouds of 1024 points per request, 7 requests after
+    warm-up. Returns the served modelnet40_full predictor."""
+    batches = [classifier_clouds(np, 16, 1024, seed=i) for i in range(7)]
+    preds, medians = {}, {}
+    for name in ("modelnet40_full", "modelnet40_cas"):
+        cfg = presets.get(name)
+        _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+        pred = preds[name] = Predictor(cfg, sd, device="cuda")
+
+        def check(out):
+            assert out.shape == (16, 40) and out.dtype == np.float32
+            assert np.isfinite(out).all()
+
+        lat, wall, peak = timed_requests(torch, pred, batches, check)
+        medians[name] = statistics.median(lat)
+        print(f"classifier {name} (bf16, 16 x 1024 pts): per-batch latency "
+              f"median {statistics.median(lat):.3f} ms (CUDA events; "
+              f"{[round(x, 3) for x in lat]}), host wall median "
+              f"{statistics.median(wall):.3f} ms; peak memory {peak:.1f} MiB")
+    return preds["modelnet40_full"], medians["modelnet40_full"]
+
+
+def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches):
+    """scannet_seg (CAS, 3 rounds, bf16 with f32 BatchNorm) at full width,
+    8 scenes of 8192 points per request, 5 requests after warm-up; every
+    forward launches knn3_mxu once per decoder stage and cloud."""
+    assert all(l.cas_iters == 3 for l in cfg.model.layers
+               if l.sampler == "cas")
+    pred = Predictor(cfg, sd, device="cuda")
+
+    def check(out):
+        assert out.shape == (8, 8192, 21) and out.dtype == np.float32
+        assert np.isfinite(out).all()
+
+    pred(batches[0])
+    knn.knn3_mxu.launches = 0
+    check(pred(batches[0]))
+    assert knn.knn3_mxu.launches == 4 * 8, knn.knn3_mxu.launches
+    lat, wall, peak = timed_requests(torch, pred, batches, check)
+    print(f"scannet_seg (CAS x3, bf16, 8 x 8192 pts): per-batch latency "
+          f"median {statistics.median(lat):.3f} ms (CUDA events; "
+          f"{[round(x, 3) for x in lat]}), host wall median "
+          f"{statistics.median(wall):.3f} ms; peak memory {peak:.1f} MiB; "
+          f"knn3_mxu launches per forward {4 * 8}")
+
+
 def profile_phase(torch, pred, xyz, latency_ms):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -341,16 +590,23 @@ def profile_phase(torch, pred, xyz, latency_ms):
     # device-side events only (kernels, copies): the aten rows repeat them
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA)
+    aten = sorted(((e.count, e.key) for e in events
+                   if e.key.startswith("aten::")), reverse=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     print(f"profile: one request {wall:.3f} ms wall under the profiler, "
           f"device busy {busy:.3f} ms; idle share {1 - busy / latency_ms:.3f}"
-          f" of the unprofiled {latency_ms:.3f} ms request")
+          f" of the unprofiled {latency_ms:.3f} ms request; "
+          f"{kernels} device launches; most frequent host ops: "
+          f"{[(k, c) for c, k in aten[:10]]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler table of one request")
+                    help="also print torch.profiler tables of one "
+                    "whole-scene and one classifier request")
     args = ap.parse_args()
 
     import numpy as np
@@ -395,7 +651,18 @@ def main() -> int:
                                 jaxrng, fold_inference, build_model)
     assert [(a[0].shape[0], a[2].shape[0]) for a in main_calls] == \
         [(512, 128), (2048, 512), (8192, 2048), (81920, 8192)]
+    # the scannet_seg serving phase's requests, and its first crop's
+    # decoder calls (CAS encoder) for the kernel phase
+    seg_cfg = presets.get("scannet_seg")
+    _, seg_sd = init_model(seg_cfg.model, torch.Generator().manual_seed(0))
+    crops = [crop_batch(np, synthetic_scene_surface, 8, seed=40 + 8 * r)
+             for r in range(5)]
+    crop_calls = decoder_inputs(torch, seg_cfg, seg_sd, crops[0], jaxrng,
+                                fold_inference, build_model)
+    assert [(a[0].shape[0], a[2].shape[0]) for a in crop_calls] == \
+        [(128, 32), (512, 128), (2048, 512), (8192, 2048)]
     cases = [(a, "main") for a in main_calls] + [
+        (a, "crop") for a in crop_calls] + [
         (ragged_inputs(torch, 1000, 700, 693, 1), "ragged"),
         (ragged_inputs(torch, 300, 200, 2, 2), "ragged"),
         (grid_inputs(torch, 4096, 2048, 3), "grid")]
@@ -410,6 +677,19 @@ def main() -> int:
                                          jaxrng)
     if args.profile:
         profile_phase(torch, pred, scenes[0], latency_ms)
+
+    paths_correctness_phase(torch, np, Predictor, presets, init_model,
+                            synthetic_scene_surface, jaxrng)
+    cas_seg_correctness_phase(
+        torch, np, Predictor, seg_cfg, seg_sd,
+        crop_batch(np, synthetic_scene_surface, 2, seed=30), jaxrng,
+        build_model, fold_inference)
+    cls_pred, cls_ms = classifier_serving_phase(torch, np, Predictor,
+                                                presets, init_model)
+    if args.profile:
+        profile_phase(torch, cls_pred, classifier_clouds(np, 16, 1024, 0),
+                      cls_ms)
+    cas_seg_serving_phase(torch, np, knn, Predictor, seg_cfg, seg_sd, crops)
 
     replaces = {"knn3_mxu": "gridgcn_tpu/ops/pallas/knn.py:97",
                 "knn3_exact": "gridgcn_tpu/ops/pallas/knn.py:55"}

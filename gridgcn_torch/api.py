@@ -3,12 +3,15 @@
     from gridgcn_torch.api import Predictor
     predict = Predictor(cfg, state_dict)          # device="cuda"
     logits = predict(points)                      # [N,3] or [B,N,3]
+    labels = predict.predict_classes(points)
     scene = predict.predict_scene(points, votes=2)
 
-The serving protocol is the JAX package's: BatchNorm folded into the Dense
-weights and the weights pre-cast to the preset's inference dtype
-(`models.fold.fold_inference`). Per-point tasks return [.., N, C] float32
-logits as numpy arrays. The CAGQ randomness comes from a jaxrng key
+Every preset serves: the classifiers and the segmentation networks with
+any decoder method. The serving protocol is the JAX package's: BatchNorm
+folded into the Dense weights and the weights pre-cast to the preset's
+inference dtype (`models.fold.fold_inference`). Logits are float32 numpy
+arrays: [C] / [B, C] for classification, [N, C] / [B, N, C] for per-point
+tasks. The CAGQ randomness comes from a jaxrng key
 (default `PRNGKey(0)`), so the same key gives the JAX package's indices.
 Not ported yet: orbax checkpoints (`load_predictor`), mesh serving and
 `predict_scenes`.
@@ -50,7 +53,8 @@ class Predictor:
     @torch.no_grad()
     def __call__(self, xyz, feat=None, mask=None,
                  rng: Optional[np.ndarray] = None) -> np.ndarray:
-        """xyz [N,3] or [B,N,3] → logits ([N,C] / [B,N,C] per cloud)."""
+        """xyz [N,3] or [B,N,3] → logits: [C] / [B,C] for classification,
+        [N,C] / [B,N,C] for per-point tasks."""
         dev = self.device
         xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
         squeeze = xyz.dim() == 2
@@ -69,6 +73,8 @@ class Predictor:
         return out[0] if squeeze else out
 
     def predict_classes(self, xyz, feat=None, mask=None):
+        """The argmax of the logits: a class per cloud (classification) or
+        per point."""
         return np.argmax(self(xyz, feat, mask), axis=-1)
 
     def predict_scene(self, xyz, feat=None, *, votes: int = 1,

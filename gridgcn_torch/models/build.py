@@ -1,21 +1,42 @@
-"""Model factory: ModelConfig → torch module, and a seeded init."""
+"""Model factory: ModelConfig → torch module, a seeded init, and the JAX
+package's dummy inputs."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from gridgcn_torch.configs.base import ModelConfig
+from gridgcn_torch.configs.base import Config, ModelConfig
+from gridgcn_torch.models.classifier import GridGCNClassifier
 from gridgcn_torch.models.layers import Dense
 from gridgcn_torch.models.segmentation import GridGCNSegmentation
+from gridgcn_torch.utils import jaxrng
 
 
 def build_model(cfg: ModelConfig) -> nn.Module:
     """The module for a config. Dense weights are uninitialized: load a
     state_dict or call `init_model`."""
+    if cfg.task == "cls":
+        return GridGCNClassifier(cfg)
     if cfg.task == "seg":
         return GridGCNSegmentation(cfg)
-    raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
+    raise ValueError(f"unknown task: {cfg.task}")
+
+
+def example_inputs(cfg: Config, batch_size: int | None = None,
+                   device="cuda"):
+    """The JAX package's deterministic dummy inputs for a config, bit for
+    bit: xyz uniform in [-1, 1) and feat in [0, 1) from PRNGKey(0), every
+    point valid → (xyz [B, N, 3], feat [B, N, C] or None, mask [B, N])."""
+    B = batch_size or cfg.data.batch_size
+    N = cfg.data.num_points
+    key = jaxrng.PRNGKey(0)
+    xyz = jaxrng.uniform(key, (B, N, 3), device, minval=-1.0, maxval=1.0)
+    feat = None
+    if cfg.model.in_channels > 0:
+        feat = jaxrng.uniform(key, (B, N, cfg.model.in_channels), device)
+    mask = torch.ones((B, N), dtype=torch.bool, device=device)
+    return xyz, feat, mask
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator):

@@ -1,0 +1,65 @@
+"""F-09: GridGCN classification network for ModelNet40 (SURVEY.md §2.2).
+
+A stack of GridConv downsampling layers (progressively fewer centers) →
+global masked max-pool over the last level's centers → FC head (Dense,
+BatchNorm, ReLU, dropout per width) → float32 logits, module for module the
+JAX package's `models/classifier.py`. Module names follow flax
+(`gridconv{i}`, `head_dense{h}`, `head_bn{h}`, `logits`), so converted
+weights load by name and `models.fold` folds them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from gridgcn_torch.configs.base import ModelConfig
+from gridgcn_torch.models.gridconv import GridConv
+from gridgcn_torch.models.layers import Dense, add_mlp, run_mlp, to_dtype
+from gridgcn_torch.utils.jaxrng import flax_make_rng
+
+_NEG_INF = -1e30
+
+
+class GridGCNClassifier(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.remat:
+            raise NotImplementedError("remat belongs to the training slice")
+        self.cfg = cfg
+        dtype = to_dtype(cfg.dtype)
+        adt = to_dtype(cfg.att_dtype) if cfg.att_dtype else None
+        bdt = to_dtype(cfg.bn_dtype) if cfg.bn_dtype else dtype
+        c = cfg.in_channels + (3 if cfg.use_xyz_feature else 0)
+        for i, spec in enumerate(cfg.layers):
+            self.add_module(f"gridconv{i}", GridConv(
+                spec, c, dtype=dtype, fold_bn=cfg.fold_bn, att_dtype=adt,
+                bn_dtype=(None if cfg.bn_dtype == "" else bdt),
+                feat_has_xyz_prefix=(i == 0 and cfg.use_xyz_feature)))
+            c = spec.mlp[-1]
+        c = add_mlp(self, "head", c, cfg.head, dtype, bdt, cfg.fold_bn)
+        self.logits = Dense(c, cfg.num_classes, torch.float32)
+
+    def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
+                mask: torch.Tensor, key: np.ndarray) -> torch.Tensor:
+        """xyz [B, N, 3] f32, feat [B, N, in_channels] or None, mask [B, N]
+        bool, key: the jaxrng key that the JAX package passes as
+        rngs={"cagq": key} → logits [B, num_classes] f32."""
+        cfg = self.cfg
+        if cfg.use_xyz_feature:
+            feat = xyz if feat is None else torch.cat([xyz, feat], -1)
+        for i in range(len(cfg.layers)):
+            # flax: self.make_rng("cagq") inside module gridconv{i}
+            k = flax_make_rng(key, (f"gridconv{i}",), 1)
+            xyz, feat, mask = getattr(self, f"gridconv{i}")(
+                xyz, feat, mask, k)
+
+        # global masked max-pool (in the compute dtype); a cloud with no
+        # valid center pools to 0
+        x = torch.where(mask[..., None], feat, _NEG_INF).amax(dim=-2)
+        x = torch.where(mask.any(dim=-1, keepdim=True), x, 0.0)
+        x = run_mlp(self, "head", len(cfg.head), x, cfg.fold_bn, cfg.dropout)
+        return self.logits(x)

@@ -46,7 +46,11 @@ class GCA(nn.Module):
         if spec.use_coverage:
             att_in += 2
         if spec.use_context_pool:
-            self.ctx_dense = Dense(in_channels + 4, spec.context_channels,
+            # 'candidates' pooling passes the level's features (GridConv's
+            # ctx_feat); the default pools the edge inputs [feat; geo]
+            ctx_in = in_channels if (spec.context_pool_source == "candidates"
+                                     and in_channels) else in_channels + 4
+            self.ctx_dense = Dense(ctx_in, spec.context_channels,
                                    self.att_dtype)
             att_in += spec.context_channels
         self.att_dense0 = Dense(att_in, spec.att_hidden, self.att_dtype)

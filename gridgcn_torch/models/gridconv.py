@@ -65,6 +65,14 @@ class GridConv(nn.Module):
 
         delta_p = node_xyz - g.center_xyz[:, :, None, :]
         delta_p = torch.where(g.neighbor_mask[..., None], delta_p, 0.0)
+        # 'candidates' context pooling: the masked mean over every stored
+        # context point, in place of GCA's mean over the K nodes
+        ctx_feat = None
+        if g.cand_idx is not None and feat is not None:
+            cand_feat = gather_point_features(feat, g.cand_idx)
+            w = g.cand_valid[..., None].to(cand_feat.dtype)
+            denom = torch.clamp_min(w.sum(dim=-2), 1.0)
+            ctx_feat = (cand_feat * w).sum(dim=-2) / denom
         center_feat = self.gca(node_feat, delta_p, g.neighbor_mask,
-                               g.node_coverage)
+                               g.node_coverage, ctx_feat=ctx_feat)
         return g.center_xyz, center_feat, g.center_valid

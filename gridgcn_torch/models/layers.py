@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import math
 
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -68,3 +70,31 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
         return ((x.float() - self.running_mean) * mul + self.bias).to(
             self.dtype)
+
+
+def add_mlp(owner: nn.Module, stem: str, in_features: int,
+            widths: Sequence[int], dtype: torch.dtype,
+            bn_dtype: torch.dtype, fold_bn: bool) -> int:
+    """Register `<stem>_dense{i}` (and, unless folded, `<stem>_bn{i}`) on
+    `owner` for each width, flax's names; returns the output width."""
+    c = in_features
+    for i, w in enumerate(widths):
+        owner.add_module(f"{stem}_dense{i}", Dense(c, w, dtype))
+        if not fold_bn:
+            owner.add_module(f"{stem}_bn{i}", BatchNorm(w, bn_dtype))
+        c = w
+    return c
+
+
+def run_mlp(owner: nn.Module, stem: str, n: int, x: torch.Tensor,
+            fold_bn: bool, dropout: float = 0.0) -> torch.Tensor:
+    """Dense → BatchNorm (unless folded) → ReLU → dropout, n times, through
+    the modules that `add_mlp` registered."""
+    for i in range(n):
+        x = getattr(owner, f"{stem}_dense{i}")(x)
+        if not fold_bn:
+            x = getattr(owner, f"{stem}_bn{i}")(x)
+        x = torch.relu(x)
+        if dropout > 0:
+            x = F.dropout(x, dropout, training=owner.training)
+    return x

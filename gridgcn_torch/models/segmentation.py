@@ -8,9 +8,11 @@ PointNet++-style encoder–decoder built from GridConv stages:
 
 Module names follow the JAX package (`gridconv{i}`, `up{i}_dense{j}`,
 `up{i}_bn{j}`, `head_dense{h}`, `head_bn{h}`, `logits`), so converted flax
-weights load by name. The decoder ports `method="pallas"`: its 3-NN query is
-the CUDA flash-kNN kernel for CUDA tensors and its plain version for CPU
-tensors.
+weights load by name. Each decoder stage's 3-NN query follows its
+`UpLayerSpec.method`: "pallas" is the CUDA flash-kNN kernel (its plain
+version for CPU tensors), "dense" the brute-force query, "grid" the
+voxel-table query, and "auto" dense up to `_DENSE_KNN_MAX_SUPPORT` coarse
+points and grid above.
 """
 
 from __future__ import annotations
@@ -19,15 +21,19 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from gridgcn_torch.configs.base import ModelConfig
 from gridgcn_torch.kernels.knn import flash_three_nn
 from gridgcn_torch.models.gridconv import GridConv
-from gridgcn_torch.models.layers import BatchNorm, Dense, to_dtype
-from gridgcn_torch.ops.upsample import three_nn_interpolate
+from gridgcn_torch.models.layers import Dense, add_mlp, run_mlp, to_dtype
+from gridgcn_torch.ops.upsample import (
+    dense_three_nn, grid_three_nn, three_nn_interpolate)
 from gridgcn_torch.utils.jaxrng import flax_make_rng
+
+# above this coarse-level size the voxel-table query wins over brute force
+_DENSE_KNN_MAX_SUPPORT = 16384
+_METHODS = ("pallas", "dense", "grid", "auto")
 
 
 class GridGCNSegmentation(nn.Module):
@@ -56,20 +62,12 @@ class GridGCNSegmentation(nn.Module):
 
         c = widths[-1]
         for i, up in enumerate(cfg.up_layers):
-            if up.method != "pallas":
-                raise NotImplementedError(
-                    f"decoder method {up.method!r} is not ported yet")
+            if up.method not in _METHODS:
+                raise ValueError(f"unknown decoder method {up.method!r}; "
+                                 f"expected one of {_METHODS}")
             c += widths[-2 - i] or 3          # skip: level feat, else xyz
-            for li, w in enumerate(up.mlp):
-                self.add_module(f"up{i}_dense{li}", Dense(c, w, dtype))
-                if not cfg.fold_bn:
-                    self.add_module(f"up{i}_bn{li}", BatchNorm(w, bdt))
-                c = w
-        for hi, w in enumerate(cfg.head):
-            self.add_module(f"head_dense{hi}", Dense(c, w, dtype))
-            if not cfg.fold_bn:
-                self.add_module(f"head_bn{hi}", BatchNorm(w, bdt))
-            c = w
+            c = add_mlp(self, f"up{i}", c, up.mlp, dtype, bdt, cfg.fold_bn)
+        c = add_mlp(self, "head", c, cfg.head, dtype, bdt, cfg.fold_bn)
         self.logits = Dense(c, cfg.num_classes, torch.float32)
 
     # ---- pieces ----
@@ -79,35 +77,45 @@ class GridGCNSegmentation(nn.Module):
         """GridConv stage i: one CAGQ + GCA downsampling step."""
         return getattr(self, f"gridconv{i}")(xyz, feat, mask, key, bounds)
 
-    def _mlp(self, stem: str, n: int, x, dropout: float = 0.0):
-        for li in range(n):
-            x = getattr(self, f"{stem}_dense{li}")(x)
-            if not self.cfg.fold_bn:
-                x = getattr(self, f"{stem}_bn{li}")(x)
-            x = torch.relu(x)
-            if dropout > 0:
-                x = F.dropout(x, dropout, training=self.training)
-        return x
+    def uses_grid(self, i: int, n_support: int) -> bool:
+        """Whether decoder stage i queries through the voxel grid for a
+        coarse level of n_support points (it then draws a CAGQ key)."""
+        method = self.cfg.up_layers[i].method
+        return method == "grid" or (method == "auto"
+                                    and n_support > _DENSE_KNN_MAX_SUPPORT)
 
     def decode_stage(self, i: int, c_xyz, c_feat, c_mask,
-                     d_xyz, d_feat, d_mask):
+                     d_xyz, d_feat, d_mask, key: np.ndarray | None = None):
         """Feature-propagation stage i: 3-NN interpolation from the coarse
-        level (c_*) to the dense level (d_*), skip-concat, shared MLP."""
+        level (c_*) to the dense level (d_*), skip-concat, shared MLP. `key`
+        is the grid query's voxel-build key (grid stages only)."""
         up = self.cfg.up_layers[i]
-        nn_idx, weights, _ = flash_three_nn(d_xyz, d_mask, c_xyz, c_mask,
-                                            k=up.k_interp)
+        if up.method == "pallas":
+            nn_idx, weights, _ = flash_three_nn(d_xyz, d_mask, c_xyz, c_mask,
+                                                k=up.k_interp)
+        elif self.uses_grid(i, c_xyz.shape[1]):
+            if key is None:
+                raise ValueError(f"decoder stage {i} queries the grid and "
+                                 "needs a key")
+            nn_idx, weights, _ = grid_three_nn(
+                d_xyz, d_mask, c_xyz, c_mask, up.resolution, up.nv, key,
+                k=up.k_interp, context=up.context)
+        else:
+            nn_idx, weights, _ = dense_three_nn(
+                d_xyz, d_mask, c_xyz, c_mask, k=up.k_interp,
+                approx=up.approx_knn)
         idt = self.interp_dtype
         interp = three_nn_interpolate(
             c_feat.to(idt), nn_idx, weights.to(idt)).to(self.dtype)
         skip = d_feat if d_feat is not None else d_xyz
         x = torch.cat([interp, skip.to(self.dtype)], dim=-1)
-        x = self._mlp(f"up{i}", len(up.mlp), x)
+        x = run_mlp(self, f"up{i}", len(up.mlp), x, self.cfg.fold_bn)
         return torch.where(d_mask[..., None], x, 0.0)
 
     def head_logits(self, x):
         """Per-point classification head (logits in float32)."""
-        return self.logits(self._mlp("head", len(self.cfg.head), x,
-                                     dropout=self.cfg.dropout))
+        return self.logits(run_mlp(self, "head", len(self.cfg.head), x,
+                                   self.cfg.fold_bn, self.cfg.dropout))
 
     # ---- full network ----
 
@@ -128,9 +136,16 @@ class GridGCNSegmentation(nn.Module):
             levels.append((xyz, feat, mask))
 
         c_xyz, c_feat, c_mask = levels[-1]
+        n_grid = 0
         for i in range(len(cfg.up_layers)):
             d_xyz, d_feat, d_mask = levels[-2 - i]
+            k = None
+            if self.uses_grid(i, c_xyz.shape[1]):
+                # flax: self.make_rng("cagq") in the root module's scope,
+                # whose counter only the grid stages advance
+                n_grid += 1
+                k = flax_make_rng(key, (), n_grid)
             c_feat = self.decode_stage(i, c_xyz, c_feat, c_mask,
-                                       d_xyz, d_feat, d_mask)
+                                       d_xyz, d_feat, d_mask, k)
             c_xyz, c_mask = d_xyz, d_mask
         return self.head_logits(c_feat)

@@ -12,10 +12,14 @@ ARE the selection, with their payload: a uniform random K-subset of the
 valid candidates, deterministic under the key. The context rows along z are
 adjacent table rows, so the walk reads context² runs of `context` rows.
 
-This slice ports the packed-key path (`approx=True`) and `center_positions`.
-The slot-table path and `return_candidates` raise `NotImplementedError`.
-The JAX package may select with an approximate top-k; the port always takes
-the exact top-k of the same unique keys.
+The slot-table path (`approx=False`) walks the index slot table instead,
+with the raw coverage riding as an extra column, and selects the top-K of
+uniform random scores in (1, 2) over the valid candidates (0 for the
+rest), ties lower index first as `lax.top_k` takes them.
+`return_candidates` also returns the [M, P·nv] candidates themselves, the
+input of 'candidates' context pooling. The JAX package may select packed
+keys with an approximate top-k; the port always takes the exact top-k of
+the same unique keys.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ import numpy as np
 import torch
 
 from gridgcn_torch.ops.gridutil import (
-    context_neighbors, context_offsets, vid_to_coords)
+    context_neighbors, context_offsets, top_k, vid_to_coords)
 from gridgcn_torch.ops.voxelize import (
     COV_BITS, VALID_KEY_MIN, VoxelTable, decode_coverage)
+from gridgcn_torch.utils import jaxrng
 
 
 @dataclass
@@ -45,6 +50,9 @@ class GroupedNodes:
       center_xyz:    [B, M, 3].
       center_valid:  [B, M] bool.
       center_vids:   [B, M] int64 — linear voxel id of each center.
+      cand_idx:      [B, M, P·nv] int64 or None — every stored context point
+                     (0 where invalid; return_candidates=True only).
+      cand_valid:    [B, M, P·nv] bool or None.
     """
 
     neighbor_idx: torch.Tensor
@@ -54,6 +62,8 @@ class GroupedNodes:
     center_xyz: torch.Tensor
     center_valid: torch.Tensor
     center_vids: torch.Tensor
+    cand_idx: torch.Tensor | None = None
+    cand_valid: torch.Tensor | None = None
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,58 +73,112 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[b, idx]
 
 
-def _gather_packed(table: VoxelTable, xyz: torch.Tensor,
-                   center_vids: torch.Tensor, center_valid: torch.Tensor,
-                   K: int, context: int):
-    """Packed-key node selection for the whole batch."""
-    R = table.resolution
+def _context_runs(padded: torch.Tensor, center_vids: torch.Tensor,
+                  center_valid: torch.Tensor, resolution: int, context: int):
+    """Each center's context rows of a table padded with r rows on top and
+    `context` rows below: padded [B, r+V+context, W] → (rows [B, M, P, W],
+    inb [B, M, P] — the context voxel is in the grid and the center valid).
+    Run (dx, dy) starts at padded row vid + dx·R² + dy·R; the clip only
+    moves runs of fully masked pairs."""
+    R = resolution
     V = R ** 3
-    nv = table.nv
     B, M = center_vids.shape
-    N = xyz.shape[1]
-    P = context ** 3
     P2 = context * context
     r = (context - 1) // 2
-    dev = xyz.device
-
+    dev = center_vids.device
     _, inb = context_neighbors(center_vids, R, context)           # [B, M, P]
     inb = inb & center_valid[..., None]
-
-    # run (dx, dy) starts at padded row vid + dx·R² + dy·R (the table has r
-    # sentinel rows on top, so a run starting at z−r is ≥ 0 in-bounds); the
-    # clip only moves runs of fully masked pairs
     offs2 = context_offsets(context).reshape(P2, context, 3)[:, 0, :2]
     d2lin = torch.as_tensor(offs2[:, 0] * R * R + offs2[:, 1] * R,
                             dtype=torch.int64, device=dev)
     base = torch.clamp_max(center_vids, V)[..., None] + d2lin     # [B, M, P2]
     base = base.clamp(0, r + V)
+    rows = base[..., None] + torch.arange(context, device=dev)    # [B,M,P2,c]
+    return _take_rows(padded, rows.reshape(B, M, P2 * context)), inb
+
+
+def _pad_rows(table: torch.Tensor, context: int, fill) -> torch.Tensor:
+    """[B, V, W] → [B, r+V+context, W] with `fill` rows around it."""
+    B, _, W = table.shape
+    r = (context - 1) // 2
+    return torch.cat([table.new_full((B, r, W), fill), table,
+                      table.new_full((B, context, W), fill)], dim=1)
+
+
+def _gather_packed(table: VoxelTable, xyz: torch.Tensor,
+                   center_vids: torch.Tensor, center_valid: torch.Tensor,
+                   K: int, context: int, return_candidates: bool):
+    """Packed-key node selection for the whole batch → (neighbor_idx,
+    neighbor_mask, node_coverage, cand_idx, cand_valid); the candidates
+    are decoded only when asked for (None otherwise)."""
+    nv = table.nv
+    B, M = center_vids.shape
+    N = xyz.shape[1]
+    P = context ** 3
+    r = (context - 1) // 2
 
     keys_p = table.key_table_pad
-    if keys_p is None or keys_p.shape[1] != r + V + context:
-        z = torch.zeros((B, r, nv), dtype=table.key_table.dtype, device=dev)
-        zc = torch.zeros((B, context, nv), dtype=table.key_table.dtype,
-                         device=dev)
-        keys_p = torch.cat([z, table.key_table, zc], dim=1)
-    rows = base[..., None] + torch.arange(context, device=dev)    # [B,M,P2,c]
-    cand = _take_rows(keys_p, rows.reshape(B, M, P))              # [B,M,P,nv]
+    if keys_p is None or keys_p.shape[1] != r + table.num_voxels + context:
+        keys_p = _pad_rows(table.key_table, context, 0)
+    cand, inb = _context_runs(keys_p, center_vids, center_valid,
+                              table.resolution, context)          # [B,M,P,nv]
     cand = torch.where(inb[..., None], cand, 0).reshape(B, M, P * nv)
 
     kk = min(K, P * nv)
     top = torch.topk(cand, kk, dim=-1, largest=True, sorted=True).values
     if kk < K:
         top = torch.nn.functional.pad(top, (0, K - kk))
-    top = top.long()
 
     # decode [valid | random | log-coverage | point index]
     idx_bits = max(1, int(N - 1).bit_length())
-    neighbor_mask = top >= VALID_KEY_MIN
-    neighbor_idx = torch.where(neighbor_mask, top & ((1 << idx_bits) - 1), 0)
-    node_coverage = torch.where(neighbor_mask, decode_coverage(
-        (top >> idx_bits) & ((1 << COV_BITS) - 1)), 0)
 
-    node_xyz = _take_rows(xyz, neighbor_idx)                      # [B,M,K,3]
-    node_xyz = torch.where(neighbor_mask[..., None], node_xyz, 0.0)
-    return neighbor_idx, neighbor_mask, node_xyz, node_coverage
+    def decode(keys):
+        keys = keys.long()
+        valid = keys >= VALID_KEY_MIN
+        idx = torch.where(valid, keys & ((1 << idx_bits) - 1), 0)
+        cov = torch.where(valid, decode_coverage(
+            (keys >> idx_bits) & ((1 << COV_BITS) - 1)), 0)
+        return valid, idx, cov
+
+    neighbor_mask, neighbor_idx, node_coverage = decode(top)
+    cand_valid = cand_idx = None
+    if return_candidates:
+        cand_valid, cand_idx, _ = decode(cand)
+    return neighbor_idx, neighbor_mask, node_coverage, cand_idx, cand_valid
+
+
+def _gather_slots(table: VoxelTable, center_vids: torch.Tensor,
+                  center_valid: torch.Tensor, K: int, context: int,
+                  keys: np.ndarray):
+    """Slot-table node selection for the whole batch (keys [B, 2]) →
+    (neighbor_idx, neighbor_mask, node_coverage, cand_idx, cand_valid)."""
+    nv = table.nv
+    B, M = center_vids.shape
+    P = context ** 3
+    # coverage rides as an extra column, so the walk is one run gather
+    slots_cov = torch.cat([table.slots, table.coverage[..., None]], dim=-1)
+    runs, inb = _context_runs(_pad_rows(slots_cov, context, -1), center_vids,
+                              center_valid, table.resolution, context)
+    cand_idx = runs[..., :nv]                                     # [B,M,P,nv]
+    cand_valid = ((cand_idx >= 0) & inb[..., None]).reshape(B, M, P * nv)
+    cand_idx = cand_idx.reshape(B, M, P * nv)
+    cand_cov = torch.where(inb, torch.clamp_min(runs[..., nv], 0), 0)
+    cand_cov = cand_cov[..., None].expand(B, M, P, nv).reshape(B, M, P * nv)
+
+    rscore = jaxrng.uniform(keys, (M, P * nv), center_vids.device)
+    score = torch.where(cand_valid, 1.0 + rscore, 0.0)
+    kk = min(K, P * nv)
+    top_score, top_pos = top_k(score, kk)
+    if kk < K:
+        top_score = torch.nn.functional.pad(top_score, (0, K - kk))
+        top_pos = torch.nn.functional.pad(top_pos, (0, K - kk))
+    neighbor_mask = top_score > 0.5
+    neighbor_idx = torch.where(
+        neighbor_mask, torch.gather(cand_idx, -1, top_pos), 0)
+    node_coverage = torch.where(
+        neighbor_mask, torch.gather(cand_cov, -1, top_pos), 0)
+    return (neighbor_idx, neighbor_mask, node_coverage,
+            torch.where(cand_valid, cand_idx, 0), cand_valid)
 
 
 def center_positions(coord_csum, seg_pos, occupancy, center_vids,
@@ -156,21 +220,28 @@ def gather_nodes(table: VoxelTable, xyz: torch.Tensor,
                  center_mode: str = "barycenter", approx: bool = False,
                  return_candidates: bool = False,
                  approx_topk: bool = False) -> GroupedNodes:
-    """Batched F-04 gather; centers from F-02; xyz = level points [B, N, 3].
-
-    `key` is kept for the signature: the packed path draws nothing from
-    it. `approx_topk` is accepted for config parity: the port always
-    selects the exact top-K."""
-    if not approx or return_candidates:
-        raise NotImplementedError(
-            "only the packed-key gather (approx=True, no candidates) is "
-            "ported")
-    nidx, nmask, nxyz, ncov = _gather_packed(
-        table, xyz, center_vids, center_valid, K, context)
+    """Batched F-04 gather; centers from F-02/F-03; xyz = level points
+    [B, N, 3]. approx=True: the packed-key path (needs the key table);
+    approx=False: the slot-table path (needs slots and coverage), whose
+    random scores come from `key` split per cloud. `approx_topk` is
+    accepted for config parity: the port always selects the exact top-K."""
+    if approx:
+        nidx, nmask, ncov, cidx, cvalid = _gather_packed(
+            table, xyz, center_vids, center_valid, K, context,
+            return_candidates)
+    else:
+        nidx, nmask, ncov, cidx, cvalid = _gather_slots(
+            table, center_vids, center_valid, K, context,
+            jaxrng.split(key, center_vids.shape[0]))
+    nxyz = _take_rows(xyz, nidx)                                  # [B,M,K,3]
+    nxyz = torch.where(nmask[..., None], nxyz, 0.0)
     cxyz = center_positions(
         table.coord_csum, table.seg_pos, table.occupancy, center_vids,
         center_valid, table.resolution, center_mode, table.origin,
         table.vsize)
+    if not return_candidates:
+        cidx = cvalid = None
     return GroupedNodes(neighbor_idx=nidx, neighbor_mask=nmask,
                         node_xyz=nxyz, node_coverage=ncov, center_xyz=cxyz,
-                        center_valid=center_valid, center_vids=center_vids)
+                        center_valid=center_valid, center_vids=center_vids,
+                        cand_idx=cidx, cand_valid=cvalid)

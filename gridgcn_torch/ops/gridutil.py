@@ -1,4 +1,5 @@
-"""Shared voxel-grid index arithmetic for CAGQ (F-01..F-05)."""
+"""Shared voxel-grid index arithmetic for CAGQ (F-01..F-05), and the
+top-k order every selection in the port uses."""
 
 from __future__ import annotations
 
@@ -44,3 +45,12 @@ def context_neighbors(vid: torch.Tensor, resolution: int, context: int):
              + ny.clamp(0, resolution - 1)) * resolution
             + nz.clamp(0, resolution - 1))
     return nvid, inb
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis,
+    largest first and, among equal values, lower index first — the order
+    of `lax.top_k` (torch.topk does not keep it): a stable descending
+    sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

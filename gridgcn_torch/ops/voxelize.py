@@ -1,4 +1,4 @@
-"""F-01: fixed-capacity voxel-table build (SURVEY.md §2.1), packed-key form.
+"""F-01: fixed-capacity voxel-table build (SURVEY.md §2.1).
 
 Sort-based and race-free, as in the JAX package's `ops/voxelize.py`:
 
@@ -6,13 +6,15 @@ Sort-based and race-free, as in the JAX package's `ops/voxelize.py`:
      first nv points of each voxel are a uniform random subset (the
      reference's shuffle-then-retain semantics),
   2. rank within the voxel segment by a cumulative max over segment starts,
-  3. one scatter of each kept point's selection key into its (voxel, rank)
-     cell of a context-padded key table.
+  3. one scatter per table of each kept point's value into its (voxel,
+     rank) cell; dropped points land on one discarded extra cell.
 
-This slice ports the build that CAGQ's packed-key path asks for
-(`with_keys=True`, `with_slots=False`, `sel_coords=False`,
-`with_coverage=False`). The slot table, the coordinate table and the
-combined selection table raise `NotImplementedError`.
+Besides the packed key table (`with_keys`), the build makes on request
+the index slot table (`with_slots`), the raw per-voxel coverage grid
+(`with_coverage`) and the packed coordinate table (`with_coords`), as the
+JAX package's `ops/voxelize.py` does. The combined selection table of its
+flag-off `coord_match`/`coord_payload` studies (`sel_coords`) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from gridgcn_torch.ops.gridutil import vid_to_coords
 from gridgcn_torch.utils import jaxrng
 
 COV_BITS = 6
+COORD_SENTINEL = 1e10   # empty-slot coordinate; d2 to it ≈ 1e20
 # selection-key valid flag at bit 29: every key stays below 0x40000000
 VALID_KEY_MIN = 1 << 29
 
@@ -35,12 +38,20 @@ class VoxelTable:
     """Fixed-capacity voxel table for one grid level (batch-major).
 
     Attributes:
-      key_table:     [B, V, nv] int32 — selection keys
+      key_table:     [B, V, nv] int32 or None — selection keys
                      [valid:1 @29 | random | coverage code:6 | point index]
-                     (a view of key_table_pad when that is built).
+                     (a view of key_table_pad when that is built;
+                     with_keys=True).
       key_table_pad: [B, pad_lo+V+pad_hi, nv] int32 or None — the same keys
                      in a context-padded buffer whose pad rows are zero
                      (= invalid key).
+      slots:         [B, V, nv] int64 or None — indices into the level's
+                     point array, -1 for an empty slot (with_slots=True).
+      coord_table:   [B, V+1, 3·nv] or None — packed slot coordinates
+                     [x-slots | y-slots | z-slots]; empty slots and the
+                     sentinel row V hold +COORD_SENTINEL (with_coords=True).
+      coverage:      [B, V] int64 or None — raw points per voxel, uncapped
+                     (with_coverage=True).
       coord_csum:    [B, N, 3] — inclusive cumulative sum of voxel-center
                      residuals (point − its voxel's center) in voxel-sorted
                      order; a voxel's barycenter is a difference of two rows.
@@ -56,7 +67,7 @@ class VoxelTable:
       nv:            slot capacity per voxel.
     """
 
-    key_table: torch.Tensor
+    key_table: torch.Tensor | None
     key_table_pad: torch.Tensor | None
     coord_csum: torch.Tensor
     seg_pos: torch.Tensor
@@ -67,6 +78,9 @@ class VoxelTable:
     vsize: torch.Tensor
     resolution: int
     nv: int
+    slots: torch.Tensor | None = None
+    coord_table: torch.Tensor | None = None
+    coverage: torch.Tensor | None = None
 
     @property
     def num_voxels(self) -> int:
@@ -115,6 +129,17 @@ def grid_bounds(xyz: torch.Tensor, mask: torch.Tensor, resolution: int):
     return lo, vsize
 
 
+def _scatter_cells(n_cells: int, fill, dest: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+    """[B, n_cells] filled with `fill`, values written at dest; dest ==
+    n_cells (an extra, discarded cell) drops a value. Every other
+    destination is unique."""
+    out = torch.full((dest.shape[0], n_cells + 1), fill, dtype=values.dtype,
+                     device=dest.device)
+    out.scatter_(1, dest, values)
+    return out[:, :n_cells]
+
+
 def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
                       nv: int, key: np.ndarray, with_coords: bool = False,
                       with_keys: bool = False, with_slots: bool = True,
@@ -129,17 +154,19 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
       resolution: grid edge; V = resolution³ voxels.
       nv: per-voxel slot capacity.
       key: jaxrng key driving the random slot-retention order.
+      with_coords: also build the packed [V+1, 3·nv] coordinate table.
+      with_keys: also build the selection-key table.
+      with_slots: build the index slot table.
       bounds: optional (origin [B, 3], vsize [B, 3]) fixing the grid.
       key_pad: (lo, hi) sentinel rows around the key table.
-    Only the packed-key build is ported: with_keys=True, with_slots=False,
-    with_coords=False, sel_coords=False, with_coverage=False.
+      with_coverage: build the raw coverage grid; without it seg_pos and
+        occupancy come from one packed scatter.
+    sel_coords (the combined selection table) is not ported.
     """
-    if (with_coords or not with_keys or with_slots or sel_coords
-            or with_coverage):
+    if sel_coords:
         raise NotImplementedError(
-            "only the packed-key voxel build is ported (with_keys=True, "
-            "with_slots=False, with_coords=False, sel_coords=False, "
-            "with_coverage=False)")
+            "the combined selection table (sel_coords, for the "
+            "coord_match/coord_payload gathers) is not ported")
     B, N = xyz.shape[:2]
     V = resolution ** 3
     dev = xyz.device
@@ -167,6 +194,7 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
     seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=-1).values
     rank = idx - seg_start
     keep = (sorted_vid < V) & (rank < nv)
+    col = torch.clamp_max(rank, nv - 1)
 
     # segment length (= raw voxel coverage) via the next segment start
     nxt_src = torch.where(torch.cat([is_start[:, 1:], ones], 1), idx + 1, N)
@@ -174,31 +202,37 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
         torch.cummin(torch.flip(nxt_src, [1]), dim=-1).values, [1])
     seg_len = next_start - seg_start
 
-    idx_bits = max(1, int(N - 1).bit_length())
-    if idx_bits + COV_BITS + 1 > 29:
-        raise ValueError(
-            f"selection-key packing supports at most 2^{29 - COV_BITS - 1}"
-            f" points per cloud (N={N})")
-    rand_bits = max(1, 29 - idx_bits - COV_BITS)
-    cov_q = encode_coverage(seg_len)
-    # random selection-key bits: the top of the sort key's random field
-    rbits = (sorted_skey >> max(srand_bits - rand_bits, 0)) \
-        & ((1 << rand_bits) - 1)
-    keys = ((keep.long() << 29) | (rbits << (idx_bits + COV_BITS))
-            | (cov_q << idx_bits) | sorted_pidx)
-    # scatter into the context-padded buffer; (voxel, rank) cells are
-    # unique, dropped points land on one discarded extra cell
-    lo, hi = key_pad
-    rows = lo + V + hi
-    dest = torch.where(keep, (sorted_vid + lo) * nv
-                       + torch.clamp_max(rank, nv - 1), rows * nv)
-    key_table_pad = torch.zeros((B, rows * nv + 1), dtype=torch.int32,
-                                device=dev)
-    key_table_pad.scatter_(1, dest, keys.int())
-    key_table_pad = key_table_pad[:, :rows * nv].view(B, rows, nv)
-    key_table = key_table_pad[:, lo:lo + V]
-    if lo == 0 and hi == 0:
-        key_table_pad = None
+    slots = None
+    if with_slots:
+        slots = _scatter_cells(
+            V * nv, -1, torch.where(keep, sorted_vid * nv + col, V * nv),
+            sorted_pidx).view(B, V, nv)
+
+    key_table = key_table_pad = None
+    if with_keys:
+        idx_bits = max(1, int(N - 1).bit_length())
+        if idx_bits + COV_BITS + 1 > 29:
+            raise ValueError(
+                f"selection-key packing supports at most "
+                f"2^{29 - COV_BITS - 1} points per cloud (N={N})")
+        rand_bits = max(1, 29 - idx_bits - COV_BITS)
+        cov_q = encode_coverage(seg_len)
+        # random selection-key bits: the top of the sort key's random field
+        rbits = (sorted_skey >> max(srand_bits - rand_bits, 0)) \
+            & ((1 << rand_bits) - 1)
+        keys = ((keep.long() << 29) | (rbits << (idx_bits + COV_BITS))
+                | (cov_q << idx_bits) | sorted_pidx)
+        # scatter into the context-padded buffer; (voxel, rank) cells are
+        # unique, dropped points land on one discarded extra cell
+        lo, hi = key_pad
+        rows = lo + V + hi
+        key_table_pad = _scatter_cells(
+            rows * nv, 0, torch.where(keep, (sorted_vid + lo) * nv + col,
+                                      rows * nv),
+            keys.int()).view(B, rows, nv)
+        key_table = key_table_pad[:, lo:lo + V]
+        if lo == 0 and hi == 0:
+            key_table_pad = None
 
     # barycenter inputs: prefix sums of voxel-center residuals in sorted
     # order (residuals are ≤ vsize/2, so the f32 sum does not cancel)
@@ -208,20 +242,39 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
         * vsize[:, None] + origin[:, None]
     coord_csum = torch.cumsum(coords - vcenter, dim=1)
 
-    # seg_pos and occupancy packed into ONE scatter of the segment starts
-    occ_bits = int(nv).bit_length()
-    packed = (seg_start << occ_bits) | torch.clamp_max(seg_len, nv)
+    coord_table = None
+    if with_coords:
+        # axis a of the point at (voxel, rank) lands at row vid, column
+        # a·nv + rank of the [V+1, 3·nv] table
+        cells = (V + 1) * 3 * nv
+        base = sorted_vid * 3 * nv + col
+        dest = torch.cat([torch.where(keep, base + a * nv, cells)
+                          for a in range(3)], 1)
+        vals = torch.cat([coords[..., a] for a in range(3)], 1)
+        coord_table = _scatter_cells(cells, COORD_SENTINEL, dest,
+                                     vals).view(B, V + 1, 3 * nv)
+
     start_dest = torch.where(is_start & (sorted_vid < V), sorted_vid, V)
-    posocc = torch.zeros((B, V + 1), dtype=torch.int64, device=dev)
-    posocc.scatter_(1, start_dest, packed)
-    posocc[:, V] = 0      # the sentinel row collects every non-start
-    seg_pos = posocc >> occ_bits
-    occupancy = (posocc & ((1 << occ_bits) - 1))[:, :V]
+    coverage = None
+    if with_coverage:
+        coverage = _scatter_cells(V, 0, start_dest, seg_len)
+        seg_pos = _scatter_cells(V, 0, start_dest, seg_start)
+        seg_pos = torch.cat([seg_pos, torch.zeros_like(seg_pos[:, :1])], 1)
+        occupancy = torch.clamp_max(coverage, nv)
+    else:
+        # seg_pos and occupancy packed into ONE scatter of the segment starts
+        occ_bits = int(nv).bit_length()
+        packed = (seg_start << occ_bits) | torch.clamp_max(seg_len, nv)
+        posocc = _scatter_cells(V, 0, start_dest, packed)
+        posocc = torch.cat([posocc, torch.zeros_like(posocc[:, :1])], 1)
+        seg_pos = posocc >> occ_bits
+        occupancy = (posocc & ((1 << occ_bits) - 1))[:, :V]
     return VoxelTable(key_table=key_table, key_table_pad=key_table_pad,
                       coord_csum=coord_csum, seg_pos=seg_pos,
                       occupancy=occupancy, point_vid=vid,
                       sorted_vid=sorted_vid, origin=origin, vsize=vsize,
-                      resolution=resolution, nv=nv)
+                      resolution=resolution, nv=nv, slots=slots,
+                      coord_table=coord_table, coverage=coverage)
 
 
 def capacity_stats(table: VoxelTable) -> dict:

@@ -8,9 +8,14 @@ indices in both packages.
 
 A key is what JAX calls its raw key data: a numpy uint32 array of shape
 (2,). Key derivation (`PRNGKey`, `split`, `fold_in`, `flax_make_rng`) runs on
-the host in numpy; draws (`bits`, `uniform`) run on the tensor's device in
-torch int64 arithmetic masked to 32 bits (uint32 ops are only partly
-supported on CUDA).
+the host in numpy; draws (`bits`, `uniform`, `gumbel`, `permutation`) run on
+the tensor's device in torch int64 arithmetic masked to 32 bits (uint32 ops
+are only partly supported on CUDA). A draw also takes a [B, 2] array of keys
+and makes the B draws in one pass, [B, *shape]: the hash is elementwise, so
+each row equals the draw under its own key.
+
+`gumbel` and `uniform` need XLA:CPU's float32 log and fused multiply-adds
+bit for bit: `utils.xla_math` repeats them.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from gridgcn_torch.utils import xla_math
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -29,8 +36,8 @@ def _threefry2x32(k0, k1, x0, x1):
     """The threefry2x32 hash of counter pairs (x0, x1) under key (k0, k1):
     20 rounds, key injection every 4. Works on numpy uint32 arrays and on
     torch int64 tensors holding values below 2³² (every add and left shift
-    is masked back to 32 bits)."""
-    k0, k1 = int(k0), int(k1)
+    is masked back to 32 bits). The key words are ints, or int64 tensors
+    that broadcast against the counters."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -45,9 +52,12 @@ def _threefry2x32(k0, k1, x0, x1):
 
 
 def _np_hash(key, x0, x1):
+    """The hash of counters (x0, x1) under one key [2] or under each of
+    [B, 2] keys (→ a leading B axis), in numpy uint32."""
+    key = np.asarray(key, np.uint32)
     x0 = np.asarray(x0, np.uint32)
     x1 = np.asarray(x1, np.uint32)
-    return _threefry2x32(key[0], key[1], x0, x1)
+    return _threefry2x32(key[..., 0:1], key[..., 1:2], x0, x1)
 
 
 def PRNGKey(seed: int) -> np.ndarray:
@@ -56,7 +66,8 @@ def PRNGKey(seed: int) -> np.ndarray:
 
 
 def split(key: np.ndarray, num: int = 2) -> np.ndarray:
-    """`jax.random.split(key, num)` → [num, 2] uint32 keys."""
+    """`jax.random.split(key, num)` → [num, 2] uint32 keys; [B, 2] keys →
+    [B, num, 2], each row the split of its key, in one pass."""
     b0, b1 = _np_hash(key, np.zeros(num, np.uint32), np.arange(num))
     return np.stack([b0, b1], axis=-1).astype(np.uint32)
 
@@ -82,21 +93,72 @@ def flax_make_rng(key: np.ndarray, path: tuple, counter: int) -> np.ndarray:
     return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
 
 
+def _key_words(key, device):
+    """(k0, k1) of one key as ints, or of a [B, 2] key array as int64
+    tensors [B, 1] on `device`, and the batch prefix of the draw shape."""
+    key = np.asarray(key)
+    if key.ndim == 1:
+        return int(key[0]), int(key[1]), ()
+    k = torch.as_tensor(key.astype(np.int64), device=device)
+    return k[:, 0:1], k[:, 1:2], (key.shape[0],)
+
+
 def bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
     """`jax.random.bits(key, shape)` (uint32) as an int64 tensor on
-    `device`: the hash of the flat row-major index, halves XOR-ed."""
+    `device`: the hash of the flat row-major index, halves XOR-ed. A [B, 2]
+    key array gives [B, *shape], row b drawn under key b."""
     shape = tuple(shape)
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise NotImplementedError("more than 2^32 draws per key")
+    k0, k1, batch = _key_words(key, device)
     lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape(shape)
+    if batch:
+        lo = lo[None]
+    b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape(batch + shape)
 
 
-def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
-    """`jax.random.uniform(key, shape)` in [0, 1), float32: the top 23 bits
-    as the mantissa of a float in [1, 2), minus 1."""
+def _floats(key, shape, device) -> torch.Tensor:
+    """The [0, 1) float32 of JAX's uniform: the top 23 bits as the mantissa
+    of a float in [1, 2), minus 1."""
     b = bits(key, shape, device)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: np.ndarray, shape, device="cpu", minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, minval=, maxval=)`, float32:
+    max(minval, floats·(maxval − minval) + minval), the multiply-add fused
+    as XLA:CPU fuses it."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    f = _floats(key, shape, device)
+    if lo == 0 and hi == 1:                 # f·1 + 0 = f, and f ≥ 0
+        return f
+    return torch.clamp_min(xla_math.fma32(f, float(hi - lo), float(lo)),
+                           float(lo))
+
+
+def gumbel(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.gumbel(key, shape)` in JAX's default "low" mode,
+    float32: −log(−log(u)) with u = uniform(minval=tiny, maxval=1)."""
+    u = uniform(key, shape, device, minval=xla_math.TINY)
+    return -xla_math.log(-xla_math.log(u))
+
+
+def permutation(key: np.ndarray, n: int, device="cpu") -> torch.Tensor:
+    """`jax.random.permutation(key, n)` as int64 (JAX's `_shuffle`):
+    ⌈3·ln n / ln(2³²−1)⌉ rounds, each a split, 32 random bits per element
+    and a stable sort by them. A [B, 2] key array gives [B, n]."""
+    keys = np.asarray(key)
+    batched = keys.ndim == 2
+    keys = keys if batched else keys[None]
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(2 ** 32 - 1)))
+    x = torch.arange(n, device=device).expand(keys.shape[0], n)
+    for _ in range(rounds):
+        pairs = split(keys)                              # [B, 2, 2]
+        keys = pairs[:, 0]
+        order = torch.sort(bits(pairs[:, 1], (n,), device), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x if batched else x[0]

@@ -122,8 +122,53 @@ def test_coverage_codec_exhaustive():
         tvox.decode_coverage(torch.from_numpy(codes).long()).numpy())
 
 
-def test_unported_builds_raise():
+@pytest.mark.parametrize("flag", ["coord_match", "coord_payload"])
+def test_unported_builds_raise(flag):
+    """The combined selection table (sel_coords) of the flag-off
+    coord_match/coord_payload gathers stays unported: the build and every
+    CAGQ layer that asks for it raise."""
     xyz = torch.zeros((1, 8, 3))
     mask = torch.ones((1, 8), dtype=torch.bool)
     with pytest.raises(NotImplementedError):
-        tvox.build_voxel_table(xyz, mask, 4, 4, np.zeros(2, np.uint32))
+        tvox.build_voxel_table(xyz, mask, 4, 4, np.zeros(2, np.uint32),
+                               with_keys=True, with_slots=False,
+                               sel_coords=True)
+    spec = dataclasses.replace(tpresets.synthetic_tiny().model.layers[0],
+                               **{flag: True})
+    with pytest.raises(NotImplementedError):
+        tcagq(xyz, mask, spec, np.zeros(2, np.uint32))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_gather_candidates_match_jax(packed):
+    """return_candidates on both gather paths: the [M, P·nv] candidate
+    indices and validity, with the selected nodes, bit for bit."""
+    from gridgcn_tpu.ops.gather import gather_nodes as jgather
+    from gridgcn_tpu.ops.sampling import sample_centers_rvs as jrvs
+    from gridgcn_torch.ops.gather import gather_nodes
+    from gridgcn_torch.ops.sampling import sample_centers_rvs
+
+    xyz, mask = _inputs()
+    xyz, mask = xyz[:, :600], mask[:, :600]
+    kw = dict(with_keys=packed, with_slots=not packed,
+              with_coverage=not packed, key_pad=(1, 3))
+    key = jax.random.PRNGKey(8)
+    jt = jvox.build_voxel_table(jnp.asarray(xyz), jnp.asarray(mask), 8, 4,
+                                key, **kw)
+    tt = tvox.build_voxel_table(torch.from_numpy(xyz),
+                                torch.from_numpy(mask), 8, 4,
+                                np.asarray(key), **kw)
+    jv, jok = jrvs(jt, 40, key)
+    tv, tok = sample_centers_rvs(tt, 40, np.asarray(key))
+    want = jgather(jt, jnp.asarray(xyz), jv, jok, 16, 3, key, approx=packed,
+                   return_candidates=True)
+    got = gather_nodes(tt, torch.from_numpy(xyz), tv, tok, 16, 3,
+                       np.asarray(key), approx=packed,
+                       return_candidates=True)
+    for field in ("cand_idx", "cand_valid", "neighbor_idx", "neighbor_mask",
+                  "node_coverage"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want, field)),
+            getattr(got, field).numpy().astype(
+                np.asarray(getattr(want, field)).dtype), err_msg=field)
+    assert got.cand_valid.any()

@@ -1,4 +1,6 @@
-"""The flash-kNN CUDA kernels against their plain versions on the card.
+"""The flash-kNN CUDA kernels against their plain versions on the card,
+and the plain-PyTorch modules of the port (samplers, dense 3-NN, the
+classifier) on CUDA against the same code on the CPU.
 
 Needs an NVIDIA GPU with nvcc: every test here is marked `cuda` and skips
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -139,3 +141,103 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         knn.knn3_exact(q, qm, s[:0], sm[:0])
     with pytest.raises(ValueError):
         knn.mxu_pack_support(s, sm.int())
+
+
+# ---- plain-PyTorch modules: CUDA against the CPU ----
+
+def _cloud_table(dev, seed, n_valid=1500):
+    """The packed voxel table (resolution 16, nv 8) of two clouds of 2000
+    points of which the first n_valid are valid, on `dev`."""
+    from gridgcn_torch.ops import voxelize
+    from gridgcn_torch.utils import jaxrng
+
+    rng = np.random.default_rng(seed)
+    xyz = torch.as_tensor(rng.uniform(-1, 1, (2, 2000, 3)),
+                          dtype=torch.float32)
+    mask = torch.arange(2000)[None].repeat(2, 1) < n_valid
+    return voxelize.build_voxel_table(
+        xyz.to(dev), mask.to(dev), 16, 8, jaxrng.PRNGKey(seed),
+        with_keys=True, with_slots=False, with_coverage=False)
+
+
+@pytest.mark.parametrize("sampler,approx,iters", [
+    ("rvs", False, 0), ("cas", False, 3), ("cas", True, 2)])
+def test_samplers_on_cuda_equal_the_cpu(cuda, sampler, approx, iters):
+    """Exact RVS and CAS indices on CUDA equal the CPU's for the same key:
+    every draw (threefry, the Cephes log of the Gumbel draws) and every
+    comparison is the same sequence of IEEE operations on both."""
+    from gridgcn_torch.ops import sampling
+    from gridgcn_torch.utils import jaxrng
+
+    for seed, n_valid in ((0, 1500), (1, 60)):
+        out = []
+        for dev in ("cpu", cuda):
+            table = _cloud_table(dev, seed, n_valid)
+            key = jaxrng.PRNGKey(100 + seed)
+            if sampler == "rvs":
+                out.append(sampling.sample_centers_rvs(table, 512, key))
+            else:
+                out.append(sampling.sample_centers_cas(
+                    table, 512, key, cas_iters=iters, approx=approx))
+        assert torch.equal(out[0][0], out[1][0].cpu())
+        assert torch.equal(out[0][1], out[1][1].cpu())
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_dense_three_nn_on_cuda_matches_the_cpu(cuda, approx):
+    """Indices equal except where the two devices' matmuls round a near tie
+    the other way (compared by float64 distance); weights within 1e-5, or
+    the bf16 spacing for approx."""
+    from gridgcn_torch.ops.upsample import dense_three_nn
+
+    rng = np.random.default_rng(2)
+    q = torch.as_tensor(rng.uniform(-1, 1, (2, 3000, 3)), dtype=torch.float32)
+    s = torch.as_tensor(rng.uniform(-1, 1, (2, 700, 3)), dtype=torch.float32)
+    qm = torch.ones((2, 3000), dtype=torch.bool)
+    sm = torch.arange(700)[None].repeat(2, 1) < 690
+    want = dense_three_nn(q, qm, s, sm, block=256, approx=approx)
+    got = [t.cpu() for t in dense_three_nn(q.to(cuda), qm.to(cuda),
+                                           s.to(cuda), sm.to(cuda),
+                                           block=256, approx=approx)]
+    assert torch.equal(want[2], got[2])
+    b = torch.arange(2)[:, None, None]
+
+    def dist(idx):
+        return ((q[:, :, None].double() - s[b, idx].double()) ** 2).sum(-1)
+
+    differ = want[0] != got[0]
+    rel = 2.0 ** -7 if approx else 1e-5
+    near = (dist(want[0]) - dist(got[0])).abs() <= rel * dist(want[0])
+    assert not (differ & ~near).any()
+    assert differ.float().mean() <= 0.01
+    same_row = ~differ.any(-1, keepdim=True)
+    tol = 1e-2 if approx else 1e-5
+    assert ((want[1] - got[1]).abs() * same_row).max() <= tol
+
+
+def test_classifier_on_cuda_matches_the_cpu(cuda):
+    """synthetic_tiny and a narrow modelnet40_cas served in f32: logits
+    within 1e-4 of the logit range, every cloud's class the same."""
+    import dataclasses
+
+    from gridgcn_torch.api import Predictor
+    from gridgcn_torch.configs import presets
+    from gridgcn_torch.models.build import init_model
+    from gridgcn_torch.utils import jaxrng
+
+    for name in ("synthetic_tiny", "modelnet40_cas"):
+        cfg = presets.get(name)
+        layers = tuple(dataclasses.replace(l, mlp=(16, 32)) for l in
+                       cfg.model.layers)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, layers=layers, eval_dtype=""))
+        _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+        N = cfg.data.num_points
+        xyz = np.random.default_rng(3).uniform(-1, 1, (4, N, 3))
+        key = jaxrng.PRNGKey(4)
+        a = Predictor(cfg, sd, device="cpu")(xyz, rng=key)
+        b = Predictor(cfg, sd, device="cuda")(xyz, rng=key)
+        assert b.shape == (4, cfg.model.num_classes)
+        assert (a.argmax(-1) == b.argmax(-1)).all()
+        np.testing.assert_allclose(b, a, rtol=0,
+                                   atol=1e-4 * np.abs(a).max())

@@ -91,15 +91,20 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_entry_points_raise():
+    """What stays unported raises: orbax checkpoints, mesh serving and the
+    scene-batched mesh tier."""
     from gridgcn_torch import api
-    from gridgcn_torch.models.build import build_model
+    from gridgcn_torch.models.build import init_model
 
     with pytest.raises(NotImplementedError):
         api.load_predictor("checkpoints")
+    cfg = tpresets.get("synthetic_tiny_seg")
+    _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        build_model(tpresets.get("synthetic_tiny").model)
+        api.Predictor(cfg, sd, device="cpu", mesh=2)
+    pred = api.Predictor(cfg, sd, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(tpresets.get("synthetic_tiny_seg").model)   # method=auto
+        pred.predict_scenes(np.zeros((2, 256, 3), np.float32))
 
 
 def test_configs_are_a_copy_of_the_jax_presets():
