@@ -34,14 +34,29 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. CAS segmentation serving: scannet_seg at full width, 8 scenes of 8192
      points per request, CAS with 3 rounds; knn3_mxu launches 4 times per
      scene (once per decoder stage and cloud);
-  9. one JSON line of kernels, the card line, and the final JSON line.
---profile adds torch.profiler tables of one whole-scene request and of one
-classifier request, with the classifier request's CUDA launch count.
+  9. training draws: jaxrng.normal (10^6 draws) and xla_math.erf_inv the
+     same bits on the card as on the CPU;
+ 10. training correctness: one synthetic_scene_seg train step (f32,
+     method="pallas", 4 scenes of 4096) on the card against the same step
+     on the CPU: loss, gradients, updated parameters and BatchNorm
+     statistics, and the share of CAGQ center voxels chosen alike;
+ 11. training: scannet_seg as the trainer runs it (CAS x3, bf16 with f32
+     BatchNorm, augmentation, dropout 0.5, Adam with the cosine schedule)
+     on a Dataset of 32 labelled 8192-point crops, batch 8: 3 warm-up
+     steps, then 30 timed steps (knn3_mxu exactly 32 launches each), the
+     loss falling, every BatchNorm statistic moved; then one eval pass
+     over 2 held-out batches;
+ 12. one JSON line of kernels, the card line, and the final JSON line.
+The kernel phase also holds both kernels against their plain versions on
+the four decoder calls of one augmented training batch.
+--profile adds torch.profiler tables of one whole-scene request, of one
+classifier request and of one training step, with their CUDA launch counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -161,9 +176,10 @@ def grid_inputs(torch, nq, ns, seed):
 def kernel_phase(torch, knn, cases):
     """Each kernel against its plain version on the card, on each
     (args, kind) case, kind "main" (one of the main path's decoder calls),
-    "crop" (one of a scannet_seg crop's decoder calls), "ragged" or "grid"
-    (knn3_mxu bit exact); returns per-kernel totals over the main cases
-    (one whole-scene forward's four decoder calls)."""
+    "crop" (one of a scannet_seg crop's decoder calls), "train" (one of an
+    augmented training batch's), "ragged" or "grid" (knn3_mxu bit exact);
+    returns per-kernel totals over the main cases (one whole-scene
+    forward's four decoder calls)."""
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
            for k in ("knn3_mxu", "knn3_exact")}
@@ -602,11 +618,504 @@ def profile_phase(torch, pred, xyz, latency_ms):
           f"{[(k, c) for c, k in aten[:10]]}")
 
 
+def rng_phase(torch, jaxrng, xla_math):
+    """jaxrng.normal over 10^6 draws and xla_math.erf_inv over a grid of
+    [-1, 1]: the same bits on the card as on the CPU (the CPU's are
+    jax.random.normal's, tests/test_torch_augment.py)."""
+    key = jaxrng.fold_in(jaxrng.PRNGKey(3), 5)
+    a = jaxrng.normal(key, (1_000_000,)).view(torch.int32)
+    b = jaxrng.normal(key, (1_000_000,), "cuda").cpu().view(torch.int32)
+    x = torch.linspace(-1, 1, 1_000_001)
+    e = xla_math.erf_inv(x).view(torch.int32)
+    f = xla_math.erf_inv(x.cuda()).cpu().view(torch.int32)
+    differ = int((a != b).sum()), int((e != f).sum())
+    print(f"rng: jaxrng.normal 10^6 draws, {differ[0]} differ between "
+          f"card and CPU; erf_inv on 10^6+1 grid points, {differ[1]} differ")
+    assert differ == (0, 0), differ
+
+
+@contextlib.contextmanager
+def cagq_record(torch, record, pinned=None):
+    """Within the block, every GridConv's CAGQ appends its groups (the
+    `GroupedNodes`) to `record`, on the CPU. Given `pinned` (such a
+    record), the i-th CAGQ returns the i-th pinned groups instead, on its
+    input's device."""
+    import gridgcn_torch.models.gridconv as gridconv
+
+    real = gridconv.cagq
+
+    def move(groups, dev):
+        return dataclasses.replace(groups, **{
+            f.name: getattr(groups, f.name).to(dev)
+            for f in dataclasses.fields(groups)
+            if torch.is_tensor(getattr(groups, f.name))})
+
+    def recording(xyz, *args, **kw):
+        out = real(xyz, *args, **kw)
+        if pinned is not None:
+            out = dataclasses.replace(
+                out, groups=move(pinned[len(record)], xyz.device))
+        record.append(move(out.groups, "cpu"))
+        return out
+
+    gridconv.cagq = recording
+    try:
+        yield
+    finally:
+        gridconv.cagq = real
+
+
+@contextlib.contextmanager
+def three_nn_record(record, pinned=None):
+    """Within the block, every decoder 3-NN query of the segmentation
+    model (`flash_three_nn`) appends its outputs (idx, weights, found) to
+    `record`, on the CPU. Given `pinned` (such a record), the i-th query
+    returns the i-th pinned outputs instead, on the query's device, and
+    its kernel does not run."""
+    import gridgcn_torch.models.segmentation as segmentation
+
+    real = segmentation.flash_three_nn
+
+    def three_nn(q_xyz, q_mask, s_xyz, s_mask, k=3):
+        if pinned is None:
+            out = real(q_xyz, q_mask, s_xyz, s_mask, k=k)
+        else:
+            out = tuple(t.to(q_xyz.device) for t in pinned[len(record)])
+        record.append(tuple(t.cpu() for t in out))
+        return out
+
+    segmentation.flash_three_nn = three_nn
+    try:
+        yield
+    finally:
+        segmentation.flash_three_nn = real
+
+
+@contextlib.contextmanager
+def pool_record(torch, record):
+    """Within the block, every GCA max-pool over the K nodes of a center
+    (`amax` over dim -2 of [B, M, K, C]) appends, on the CPU, the gap
+    between each output's two largest nodes relative to the largest (inf
+    where the largest is not above 0): an output whose gap is a few ulps
+    may send its gradient to another node on another device."""
+    real = torch.Tensor.amax
+
+    def amax(self, dim=None, keepdim=False):
+        if dim == -2 and self.dim() == 4 and not keepdim \
+                and self.shape[-2] > 1:
+            v = torch.topk(self.detach().float(), 2, dim=-2).values
+            record.append(torch.where(
+                v[..., 0, :] > 0, (v[..., 0, :] - v[..., 1, :])
+                / v[..., 0, :], float("inf")).cpu())
+        return real(self, dim=dim, keepdim=keepdim)
+
+    torch.Tensor.amax = amax
+    try:
+        yield
+    finally:
+        torch.Tensor.amax = real
+
+
+@contextlib.contextmanager
+def float64_batchnorm(torch):
+    """Within the block, a batch-statistics BatchNorm computes in its
+    input's dtype (float64 in a float64 model) instead of float32."""
+    from gridgcn_torch.models.layers import BN_EPS, BatchNorm
+
+    def forward(self, x):
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) \
+            + self.bias
+
+    real = BatchNorm.forward
+    BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm.forward = real
+
+
+def one_train_step(torch, steps, cfg, model, sd, batch, key, dev,
+                   pin_cagq=None, pin_three_nn=None):
+    """One train step of cfg on dev from the state_dict sd, with the CAGQ
+    groups and the 3-NN outputs of another run pinned where given (see
+    `cagq_record`, `three_nn_record`). Returns, on the CPU: the metrics,
+    {name: gradient}, the state_dict after the step, and the CAGQ, 3-NN
+    and max-pool records."""
+    state = steps.create_train_state(cfg, model, sd, 4, device=dev)
+    grads, update = [], state.tx.update
+    state.tx.update = lambda g, norm: (grads.extend(x.cpu() for x in g),
+                                       update(g, norm))[1]
+    groups, nns, pools = [], [], []
+    with cagq_record(torch, groups, pin_cagq), \
+            three_nn_record(nns, pin_three_nn), pool_record(torch, pools):
+        _, m = steps.make_train_step(cfg)(state, batch, key)
+    names = [n for n, _ in state.model.named_parameters()]
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                grads=dict(zip(names, grads)),
+                state={k: v.cpu() for k, v in state.model.state_dict().items()},
+                cagq=groups, three_nn=nns, pools=pools)
+
+
+def float64_gradients(torch, steps, jaxrng, cfg, model, sd, batch, key,
+                      pinned):
+    """The loss and gradients of the step `one_train_step` takes (no
+    augmentation), computed on the CPU in float64 (BatchNorm included)
+    with the CAGQ groups and 3-NN outputs of the run `pinned`: the exact
+    answer for that run's discrete choices."""
+    assert not cfg.data.augment and cfg.model.dropout == 0.0
+    model.load_state_dict(sd)
+    model.double().train()
+    for mod in model.modules():
+        for a in ("dtype", "att_dtype", "interp_dtype"):
+            if isinstance(getattr(mod, a, None), torch.dtype):
+                setattr(mod, a, torch.float64)
+    _, k_cagq, k_drop = jaxrng.split(jaxrng.fold_in(key, 0), 3)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with cagq_record(torch, [], pinned["cagq"]), \
+            three_nn_record([], pinned["three_nn"]), float64_batchnorm(torch):
+        logits = model(b["xyz"].double(), None, b["mask"], k_cagq, k_drop)
+        loss, _ = steps._loss_and_logits(cfg, logits, {
+            "label": b["label"].long(), "mask": b["mask"]})
+    params = list(model.parameters())
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(loss, params, allow_unused=True), params)]
+    return dict(metrics={"loss": float(loss.detach()),
+                         "grad_norm": float(steps.global_norm(grads))},
+                grads={n: g.detach() for (n, _), g in zip(
+                    model.named_parameters(), grads)})
+
+
+def train_gaps(torch, steps, cfg, got, want, exact=None):
+    """How far the step `got` (from `one_train_step`) is from the step
+    `want`, its loss and gradients from `exact` where given (from
+    `float64_gradients`): relative |Δ| of loss and grad_norm; the largest
+    per-tensor gradient error ‖Δg‖ / max(‖g‖, 1e-3·‖g‖ of the whole
+    model) over the parameters whose gradient is not rounding noise
+    (`steps.noise_gradient_params`), and the largest noise gradient in
+    units of the largest gradient element; the largest BatchNorm
+    statistic error in units of its tensor's scale; the largest updated
+    parameter error in units of its tensor's scale, over the elements
+    whose two gradients agree to 1e-3 (a determined update); the share of
+    elements that are not determined, each of which Adam's first step
+    moves by up to lr either way; and the largest parameter error in lr."""
+    ref = exact or want
+    gg, gr, gc = got["grads"], ref["grads"], want["grads"]
+    rel = {k: abs(got["metrics"][k] - ref["metrics"][k])
+           / abs(ref["metrics"][k]) for k in ("loss", "grad_norm")}
+    noise = steps.noise_gradient_params(cfg, gr)
+    gmax = max(float(g.abs().max()) for g in gr.values())
+    floor = 1e-3 * ref["metrics"]["grad_norm"]
+    out = dict(rel, grad=0.0, worst="", noise=0.0, param=0.0, stat=0.0,
+               undetermined=0.0, lr_moves=0.0)
+    for k, w in want["state"].items():
+        d, scale = (got["state"][k] - w).abs(), float(w.abs().max())
+        if k not in gc:
+            out["stat"] = max(out["stat"], float(d.max()) / scale)
+            continue
+        if k in noise:
+            out["noise"] = max(out["noise"], float(max(
+                gg[k].abs().max(), gr[k].abs().max())) / gmax)
+        else:
+            r = float((gg[k] - gr[k]).norm()) / max(float(gr[k].norm()),
+                                                   floor)
+            if r > out["grad"]:
+                out["grad"], out["worst"] = r, k
+        det = (gg[k] - gc[k]).abs() <= 1e-3 * gc[k].abs()
+        out["undetermined"] += float((~det).sum())
+        if det.any():
+            out["param"] = max(out["param"], float(d[det].max()) / scale)
+        out["lr_moves"] = max(out["lr_moves"], float(d.max()) / cfg.train.lr)
+    out["undetermined"] /= sum(g.numel() for g in gc.values())
+    return out
+
+
+def train_gap_line(g):
+    return (f"loss rel {g['loss']:.3g}, grad_norm rel {g['grad_norm']:.3g}, "
+            f"max gradient err {g['grad']:.3g} ({g['worst']}), noise "
+            f"gradients {g['noise']:.3g} of the largest, BatchNorm statistics "
+            f"{g['stat']:.3g} of scale, parameters {g['param']:.3g} of scale "
+            f"where determined, undetermined share {g['undetermined']:.4f} "
+            f"(largest move {g['lr_moves']:.3g} lr)")
+
+
+def three_nn_line(torch, i, got, want):
+    """One decoder stage's 3-NN on two devices: index agreement and the
+    largest weight difference, overall and over the queries whose nearest
+    support does not take 0.99 of the weight (no support within a few
+    ulps of the query, where d² + 1e-8 amplifies the distances' rounding)."""
+    (ig, wg, _), (ic, wc, _) = got, want
+    dw = (wg - wc).abs().amax(-1)
+    near = wc.amax(-1) >= 0.99
+    far = dw[~near].max() if (~near).any() else torch.zeros(())
+    return (f"  decoder stage {i} 3-NN: indices alike "
+            f"{float((ig == ic).float().mean()):.6f}; weights max |diff| "
+            f"{float(dw.max()):.3g}; queries with a support at d² ~ 0 "
+            f"{float(near.float().mean()):.4f} of all, max |diff| over the "
+            f"others {float(far):.3g}")
+
+
+def train_correctness_phase(torch, np, presets, init_model, build_model,
+                            steps, scene_fn, jaxrng):
+    """One synthetic_scene_seg train step (f32, method="pallas": knn3_mxu
+    on the card, its plain version on the CPU; no augmentation or dropout
+    in this preset), 4 scenes of 4096 points, from the same weights and
+    key (`train_gaps` defines each number):
+
+    1. exact: the card's step with the CPU's CAGQ groups and decoder 3-NN
+       outputs pinned (every op still runs on the card) against the same
+       step in float64 on the CPU (`float64_gradients`): loss and gradient
+       norm within 1e-5 relative, every gradient within 1e-4, noise
+       gradients within 2e-4 of the largest; against the CPU's f32 step:
+       BatchNorm statistics and determined parameters within 1e-5 of
+       scale, at most 15% of the elements undetermined.
+    2. as trained: the card's step against the CPU's. The two devices'
+       discrete choices differ: knn3_mxu and its plain version add the 16
+       terms of d² + 1 in another order, a few ulps of 1 apart, and where
+       a query coincides with a support (a CAGQ center is one of the finer
+       level's points) its weights 1/(d² + 1e-8) differ by up to 10x; the
+       CAGQ barycenters are f32 prefix-sum differences, summed in another
+       order on each device. Gated a few times above the gap measured on
+       the H100 (PERF.md): loss 1e-5, gradient norm 1e-4, gradients 1e-2,
+       BatchNorm statistics 3e-5, determined parameters 1e-5, at most 70%
+       of the elements undetermined.
+    In both, no parameter is more than 2 lr off. Printed beside them: the
+    card with only the 3-NN pinned; the CPU's f32 step against float64,
+    repeated, and with its own CAGQ and 3-NN outputs pinned; each CAGQ
+    layer's and decoder stage's agreement; each GCA layer's near-tied
+    max-pool outputs."""
+    cfg = presets.get("synthetic_scene_seg")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, up_layers=tuple(dataclasses.replace(u, method="pallas")
+                                   for u in cfg.model.up_layers)))
+    assert cfg.model.dtype == "float32" and not cfg.data.augment
+    assert cfg.model.dropout == 0.0
+    scenes = [scene_fn(4096, seed=60 + i, return_labels=True)
+              for i in range(4)]
+    batch = {"xyz": np.stack([x for x, _ in scenes]),
+             "mask": np.ones((4, 4096), bool),
+             "label": np.stack([lab for _, lab in scenes])}
+    _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+    key = jaxrng.PRNGKey(4)
+
+    def run(dev, **pins):
+        return one_train_step(torch, steps, cfg, build_model(cfg.model), sd,
+                              batch, key, dev, **pins)
+
+    cpu = run("cpu")
+    exact = float64_gradients(torch, steps, jaxrng, cfg,
+                              build_model(cfg.model), sd, batch, key, cpu)
+    card = run("cuda")
+    checks = {
+        "exact: cpu's CAGQ and 3-NN pinned, vs float64": (
+            run("cuda", pin_cagq=cpu["cagq"], pin_three_nn=cpu["three_nn"]),
+            exact),
+        "as trained": (card, None),
+        "3-NN pinned": (run("cuda", pin_three_nn=cpu["three_nn"]), None),
+        "the cpu's own step vs float64": (cpu, exact),
+        "the cpu's step again": (run("cpu"), None),
+        "the cpu's step with its own CAGQ and 3-NN pinned": (
+            run("cpu", pin_cagq=cpu["cagq"], pin_three_nn=cpu["three_nn"]),
+            None)}
+    gaps = {}
+    for name, (r, ref) in checks.items():
+        gaps[name] = train_gaps(torch, steps, cfg, r, cpu, ref)
+        print(f"train check synthetic_scene_seg (f32, pallas, 4 x 4096), "
+              f"{name}: loss {r['metrics']['loss']:.7g} vs "
+              f"{(ref or cpu)['metrics']['loss']:.7g}; "
+              f"{train_gap_line(gaps[name])}")
+        assert len(r["three_nn"]) == 2 and gaps[name]["lr_moves"] <= 2
+    for i, (g, c) in enumerate(zip(card["cagq"], cpu["cagq"])):
+        alike = {f: round(float((getattr(g, f) == getattr(c, f))
+                                .float().mean()), 6)
+                 for f in ("center_vids", "center_valid", "neighbor_idx",
+                           "neighbor_mask", "node_coverage", "center_xyz",
+                           "node_xyz")}
+        print(f"  CAGQ layer {i} on the card vs the cpu, share alike: "
+              f"{alike}; center_xyz max |diff| "
+              f"{float((g.center_xyz - c.center_xyz).abs().max()):.3g}")
+        assert all(alike[f] == 1.0 for f in ("center_vids", "neighbor_idx",
+                                             "neighbor_mask")), alike
+    for i, (g, c) in enumerate(zip(card["three_nn"], cpu["three_nn"])):
+        print(three_nn_line(torch, i, g, c))
+    for i, gap in enumerate(cpu["pools"]):
+        pos = gap[torch.isfinite(gap)]
+        print(f"  GCA layer {i} max-pool on the cpu: {pos.numel()} outputs "
+              f"above 0; two largest nodes exactly tied "
+              f"{int((pos == 0).sum())}, within 1e-6 relative "
+              f"{int(((pos > 0) & (pos <= 1e-6)).sum())}, within 1e-5 "
+              f"{int(((pos > 0) & (pos <= 1e-5)).sum())}")
+    ge = gaps["exact: cpu's CAGQ and 3-NN pinned, vs float64"]
+    ga = gaps["as trained"]
+    assert ge["loss"] <= 1e-5 and ge["grad_norm"] <= 1e-5, ge
+    assert ge["grad"] <= 1e-4 and ge["noise"] <= 2e-4, ge
+    assert ge["param"] <= 1e-5 and ge["stat"] <= 1e-5, ge
+    assert ge["undetermined"] <= 0.15, ge
+    assert ga["loss"] <= 1e-5 and ga["grad_norm"] <= 1e-4, ga
+    assert ga["grad"] <= 1e-2 and ga["noise"] <= 2e-4, ga
+    assert ga["param"] <= 1e-5 and ga["stat"] <= 3e-5, ga
+    assert ga["undetermined"] <= 0.7, ga
+
+
+def scannet_train_config(presets):
+    """scannet_seg as the trainer runs it on surface-scene labels: the
+    ignore label off (scripts/convergence.py does the same)."""
+    cfg = presets.get("scannet_seg")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, ignore_label=None))
+
+
+def train_crops(np, Dataset, scene_fn, n, seed):
+    """A Dataset of n labelled 8192-point synthetic surface crops."""
+    crops = [scene_fn(8192, seed=seed + i, return_labels=True)
+             for i in range(n)]
+    return Dataset(np.stack([x for x, _ in crops]),
+                   np.stack([lab for _, lab in crops]), task="seg",
+                   num_classes=21)
+
+
+def first_train_batch(torch, cfg, ds, jaxrng, augment_batch):
+    """The first training batch of the training phase, augmented with the
+    first step's augmentation key: [8, 8192, 3] on the card."""
+    batch = next(ds.batches(cfg.data.batch_size, seed=0))
+    k_aug = jaxrng.split(jaxrng.fold_in(jaxrng.PRNGKey(0), 0), 3)[0]
+    xyz, mask, _ = augment_batch(
+        torch.as_tensor(batch["xyz"], device="cuda"),
+        torch.as_tensor(batch["mask"], device="cuda"), k_aug, cfg.data)
+    assert bool(mask.all())
+    return xyz
+
+
+def train_phase(torch, np, knn, cfg, ds, heldout, init_model, build_model,
+                steps, jaxrng, profile):
+    """scannet_seg training at full width on the card: 3 warm-up steps,
+    30 timed steps (CUDA events and host wall), knn3_mxu exactly 32 launches
+    per step, finite losses and gradient norms, the loss falling (mean of
+    the last 5 below the first 5), every BatchNorm statistic moved; then
+    one eval pass over 2 held-out batches whose confusion matrix counts
+    every valid point. Returns the timed steps' median ms."""
+    m = cfg.model
+    assert [l.cas_iters for l in m.layers if l.sampler == "cas"] == [3, 3]
+    assert m.dtype == "bfloat16" and m.bn_dtype == "float32"
+    assert m.dropout == 0.5 and all(u.method == "pallas"
+                                    for u in m.up_layers)
+    d = cfg.data
+    assert d.augment and d.rotate and d.jitter_sigma > 0 and d.shift_range
+    assert cfg.train.lr_schedule == "cosine" and cfg.train.weight_decay == 0
+    B = d.batch_size
+    spe = ds.steps_per_epoch(B)
+    assert (ds.size, B, spe) == (32, 8, 4)
+    model, sd = init_model(m, torch.Generator().manual_seed(0))
+    state = steps.create_train_state(cfg, model, sd, spe)
+    stats0 = {k: v.clone() for k, v in state.model.state_dict().items()
+              if "running" in k}
+    step = steps.make_train_step(cfg)
+    rng = jaxrng.PRNGKey(0)
+
+    def batches():
+        epoch = 0
+        while True:
+            yield from ds.batches(B, seed=epoch)
+            epoch += 1
+
+    feed = batches()
+    for _ in range(3):                                   # warm-up
+        state, met = step(state, next(feed), rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn.knn3_mxu.launches = 0
+    knn.knn3_exact.launches = 0
+    knn.mxu_pack_support.launches = 0
+    losses, norms, lat, wall, per_step = [], [], [], [], []
+    n_steps = 30
+    for _ in range(n_steps):
+        batch = next(feed)
+        n0 = knn.knn3_mxu.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, met = step(state, batch, rng)
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        lat.append(start.elapsed_time(end))
+        per_step.append(knn.knn3_mxu.launches - n0)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {"knn3_mxu": knn.knn3_mxu.launches,
+                "knn3_exact": knn.knn3_exact.launches,
+                "mxu_pack_support": knn.mxu_pack_support.launches}
+    print(f"train scannet_seg (CAS x3, bf16 + f32 BN, augment, dropout 0.5, "
+          f"8 x 8192 pts, {n_steps} steps after 3 warm-up): ms per step "
+          f"median {statistics.median(lat):.3f} (CUDA events; min "
+          f"{min(lat):.3f}, max {max(lat):.3f}), host wall median "
+          f"{statistics.median(wall):.3f} ms; peak memory {peak:.1f} MiB; "
+          f"launches in the timed steps {launches}, knn3_mxu per step "
+          f"{sorted(set(per_step))}; lr now {float(met['lr']):.6g}")
+    print(f"  loss curve: {[round(x, 4) for x in losses]}")
+    print(f"  grad_norm: {[round(x, 3) for x in norms]}")
+    assert all(n == 4 * B for n in per_step), per_step
+    assert launches["knn3_exact"] == 0
+    assert launches["mxu_pack_support"] == launches["knn3_mxu"]
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"  mean loss of the first 5 timed steps {first:.4f}, of the "
+          f"last 5 {last:.4f}")
+    assert last < first, (first, last)
+    now = state.model.state_dict()
+    unmoved = [k for k, v in stats0.items() if torch.equal(v, now[k])]
+    assert not unmoved, unmoved
+    print(f"  all {len(stats0)} BatchNorm running statistics moved")
+
+    evaluate = steps.make_eval_step(cfg)
+    cm = None
+    for batch in heldout.batches(B, seed=0, shuffle=False):
+        out = evaluate(state, batch, rng)
+        cm = out if cm is None else cm + out
+    total = int(cm.sum())
+    acc = float(cm.diagonal().sum()) / total
+    print(f"  eval over {heldout.size // B} held-out batches: confusion "
+          f"matrix counts {total} points (expected "
+          f"{heldout.size * d.num_points}), overall accuracy {acc:.4f}")
+    assert total == heldout.size * d.num_points
+    if profile:
+        profile_train_step(torch, step, state, next(feed), rng,
+                           statistics.median(lat))
+    return statistics.median(lat)
+
+
+def profile_train_step(torch, step, state, batch, rng, latency_ms):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, rng)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA)
+    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    print(f"profile: one training step {wall:.3f} ms wall under the "
+          f"profiler, device busy {busy:.3f} ms; idle share "
+          f"{1 - busy / latency_ms:.3f} of the unprofiled {latency_ms:.3f} "
+          f"ms step; {kernels} device launches per step")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler tables of one "
-                    "whole-scene and one classifier request")
+                    "whole-scene request, one classifier request and one "
+                    "training step")
     args = ap.parse_args()
 
     import numpy as np
@@ -617,11 +1126,14 @@ def main() -> int:
         return 1
     from gridgcn_torch.api import Predictor
     from gridgcn_torch.configs import presets
+    from gridgcn_torch.data.augment import augment_batch
+    from gridgcn_torch.data.pipeline import Dataset
     from gridgcn_torch.data.synthetic import synthetic_scene_surface
     from gridgcn_torch.kernels import knn
     from gridgcn_torch.models.build import build_model, init_model
     from gridgcn_torch.models.fold import fold_inference
-    from gridgcn_torch.utils import jaxrng
+    from gridgcn_torch.train import steps
+    from gridgcn_torch.utils import jaxrng, xla_math
 
     t_start = time.perf_counter()
     card = card_line()
@@ -661,8 +1173,20 @@ def main() -> int:
                                 fold_inference, build_model)
     assert [(a[0].shape[0], a[2].shape[0]) for a in crop_calls] == \
         [(128, 32), (512, 128), (2048, 512), (8192, 2048)]
+    # the training phase's data, and the decoder calls of its first
+    # augmented batch (first crop) for the kernel phase
+    train_cfg = scannet_train_config(presets)
+    train_ds = train_crops(np, Dataset, synthetic_scene_surface, 32, 200)
+    heldout = train_crops(np, Dataset, synthetic_scene_surface, 16, 400)
+    train_calls = decoder_inputs(
+        torch, train_cfg, seg_sd,
+        first_train_batch(torch, train_cfg, train_ds, jaxrng, augment_batch),
+        jaxrng, fold_inference, build_model)
+    assert [(a[0].shape[0], a[2].shape[0]) for a in train_calls] == \
+        [(128, 32), (512, 128), (2048, 512), (8192, 2048)]
     cases = [(a, "main") for a in main_calls] + [
         (a, "crop") for a in crop_calls] + [
+        (a, "train") for a in train_calls] + [
         (ragged_inputs(torch, 1000, 700, 693, 1), "ragged"),
         (ragged_inputs(torch, 300, 200, 2, 2), "ragged"),
         (grid_inputs(torch, 4096, 2048, 3), "grid")]
@@ -690,6 +1214,12 @@ def main() -> int:
         profile_phase(torch, cls_pred, classifier_clouds(np, 16, 1024, 0),
                       cls_ms)
     cas_seg_serving_phase(torch, np, knn, Predictor, seg_cfg, seg_sd, crops)
+
+    rng_phase(torch, jaxrng, xla_math)
+    train_correctness_phase(torch, np, presets, init_model, build_model,
+                            steps, synthetic_scene_surface, jaxrng)
+    train_phase(torch, np, knn, train_cfg, train_ds, heldout, init_model,
+                build_model, steps, jaxrng, args.profile)
 
     replaces = {"knn3_mxu": "gridgcn_tpu/ops/pallas/knn.py:97",
                 "knn3_exact": "gridgcn_tpu/ops/pallas/knn.py:55"}

@@ -27,9 +27,12 @@ class GCA(nn.Module):
     def __init__(self, spec: GridLayerSpec, in_channels: int,
                  dtype: torch.dtype = torch.float32, fold_bn: bool = False,
                  att_dtype: Optional[torch.dtype] = None,
-                 bn_dtype: Optional[torch.dtype] = None):
+                 bn_dtype: Optional[torch.dtype] = None,
+                 bn_momentum: float = 0.9):
         """in_channels: width of the node features (0: none, geometry
-        only)."""
+        only). In training mode the edge BatchNorms take their statistics
+        over every (center, node) row, masked rows included, as the JAX
+        package's do: the mask applies after the ReLU."""
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -40,7 +43,8 @@ class GCA(nn.Module):
         for li, w in enumerate(spec.mlp):
             self.add_module(f"edge_dense{li}", Dense(c, w, dtype))
             if not fold_bn:
-                self.add_module(f"edge_bn{li}", BatchNorm(w, bdt))
+                self.add_module(f"edge_bn{li}",
+                                BatchNorm(w, bdt, bn_momentum))
             c = w
         att_in = 4
         if spec.use_coverage:

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gridgcn_torch.configs.base import GridLayerSpec
 from gridgcn_torch.models.gca import GCA
@@ -25,12 +26,23 @@ def gather_point_features(feat: torch.Tensor, idx: torch.Tensor):
     return feat[b, idx]
 
 
+def run_stage(conv: nn.Module, remat: bool, *args):
+    """conv(*args); with remat, in training, the stage's activations are
+    recomputed in the backward pass, as the JAX package's
+    `nn.remat(GridConv)` does (the same key gives the same CAGQ
+    indices)."""
+    if remat and conv.training and torch.is_grad_enabled():
+        return checkpoint(conv, *args, use_reentrant=False)
+    return conv(*args)
+
+
 class GridConv(nn.Module):
     def __init__(self, spec: GridLayerSpec, in_channels: int,
                  dtype: torch.dtype = torch.float32, fold_bn: bool = False,
                  att_dtype: Optional[torch.dtype] = None,
                  bn_dtype: Optional[torch.dtype] = None,
-                 feat_has_xyz_prefix: bool = False):
+                 feat_has_xyz_prefix: bool = False,
+                 bn_momentum: float = 0.9):
         """in_channels: width of the level's point features (0: none).
         feat_has_xyz_prefix: feat[..., :3] is the raw xyz (the input layer
         with use_xyz_feature), so those channels come from the gathered
@@ -39,7 +51,8 @@ class GridConv(nn.Module):
         self.spec = spec
         self.feat_has_xyz_prefix = feat_has_xyz_prefix
         self.gca = GCA(spec, in_channels, dtype=dtype, fold_bn=fold_bn,
-                       att_dtype=att_dtype, bn_dtype=bn_dtype)
+                       att_dtype=att_dtype, bn_dtype=bn_dtype,
+                       bn_momentum=bn_momentum)
 
     def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
                 mask: torch.Tensor, key: np.ndarray, bounds=None

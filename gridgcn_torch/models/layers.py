@@ -1,11 +1,14 @@
-"""Dense and BatchNorm with flax's numerics, over the last axis.
+"""Dense, BatchNorm and dropout with flax's numerics, over the last axis.
 
 `Dense` computes in a chosen dtype like flax's `nn.Dense(dtype=...)`: the
 input, weight and bias are cast to it. Its weight is stored [out, in], as
-torch's `nn.Linear` stores it. `BatchNorm` is flax's inference-mode
-`nn.BatchNorm`: (x − mean)·(rsqrt(var + eps)·scale) + bias in float32, cast
-to its dtype. Parameter names follow torch (`weight`, `bias`,
-`running_mean`, `running_var`); `utils/convert.py` maps flax's onto them.
+torch's `nn.Linear` stores it. `BatchNorm` is flax's `nn.BatchNorm`:
+(x − mean)·(rsqrt(var + eps)·scale) + bias in float32, cast to its dtype,
+with the running statistics in eval mode and, in training mode, the batch's
+own (flax's float32 fast variance, over every axis but the last). Parameter
+names follow torch (`weight`, `bias`, `running_mean`, `running_var`);
+`utils/convert.py` maps flax's onto them. `dropout` is flax's
+`nn.Dropout`, its mask drawn from a jaxrng key.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ import math
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gridgcn_torch.utils import jaxrng
 
 BN_EPS = 1e-5      # flax.linen.BatchNorm default epsilon
 
@@ -55,46 +61,99 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.9):
+        """momentum: flax's convention, the share of the running
+        statistics kept at each update (torch's momentum is 1 − this)."""
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
+        self.momentum = momentum
+        self.batch_stats = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm is not ported yet; call .eval()")
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(
-            self.dtype)
+            # flax's fast variance: E[x²] − E[x]², clipped at 0, in f32;
+            # every row counts, masked (padded) rows included
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            self.batch_stats = (mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+    @torch.no_grad()
+    def update_running_stats(self) -> None:
+        """Fold the statistics of the last training forward into the
+        running ones as flax does, m·running + (1 − m)·batch with the
+        biased variance, and forget them. A no-op without a training
+        forward since the last update."""
+        if self.batch_stats is None:
+            return
+        m = float(np.float32(self.momentum))
+        keep = float(np.float32(1.0 - self.momentum))
+        for ra, batch in zip((self.running_mean, self.running_var),
+                             self.batch_stats):
+            ra.copy_(ra * m + keep * batch)
+        self.batch_stats = None
+
+
+def update_batch_stats(model: nn.Module) -> None:
+    """`BatchNorm.update_running_stats` on every BatchNorm of `model`: what
+    flax's `mutable=["batch_stats"]` returns, applied once per step (a
+    rematerialized stage that runs its BatchNorms again records the same
+    statistics again)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.update_running_stats()
+
+
+def dropout(x: torch.Tensor, rate: float, key: np.ndarray) -> torch.Tensor:
+    """flax's `nn.Dropout(rate)` in training mode under `key`: keep
+    bernoulli(key, 1 − rate, x.shape) and return x / (1 − rate) there, 0
+    elsewhere, in x's dtype."""
+    keep_prob = 1.0 - rate
+    keep = jaxrng.bernoulli(key, keep_prob, x.shape, x.device)
+    scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, 0.0)
 
 
 def add_mlp(owner: nn.Module, stem: str, in_features: int,
             widths: Sequence[int], dtype: torch.dtype,
-            bn_dtype: torch.dtype, fold_bn: bool) -> int:
+            bn_dtype: torch.dtype, fold_bn: bool,
+            bn_momentum: float = 0.9) -> int:
     """Register `<stem>_dense{i}` (and, unless folded, `<stem>_bn{i}`) on
     `owner` for each width, flax's names; returns the output width."""
     c = in_features
     for i, w in enumerate(widths):
         owner.add_module(f"{stem}_dense{i}", Dense(c, w, dtype))
         if not fold_bn:
-            owner.add_module(f"{stem}_bn{i}", BatchNorm(w, bn_dtype))
+            owner.add_module(f"{stem}_bn{i}",
+                             BatchNorm(w, bn_dtype, bn_momentum))
         c = w
     return c
 
 
 def run_mlp(owner: nn.Module, stem: str, n: int, x: torch.Tensor,
-            fold_bn: bool, dropout: float = 0.0) -> torch.Tensor:
+            fold_bn: bool, dropout_rate: float = 0.0,
+            dropout_keys: Sequence[np.ndarray] | None = None
+            ) -> torch.Tensor:
     """Dense → BatchNorm (unless folded) → ReLU → dropout, n times, through
-    the modules that `add_mlp` registered."""
+    the modules that `add_mlp` registered. Dropout runs in training mode
+    only, layer i under dropout_keys[i]."""
     for i in range(n):
         x = getattr(owner, f"{stem}_dense{i}")(x)
         if not fold_bn:
             x = getattr(owner, f"{stem}_bn{i}")(x)
         x = torch.relu(x)
-        if dropout > 0:
-            x = F.dropout(x, dropout, training=owner.training)
+        if dropout_rate > 0 and owner.training:
+            if dropout_keys is None:
+                raise ValueError("training with dropout needs dropout keys")
+            x = dropout(x, dropout_rate, dropout_keys[i])
     return x

@@ -8,11 +8,14 @@ PointNet++-style encoder–decoder built from GridConv stages:
 
 Module names follow the JAX package (`gridconv{i}`, `up{i}_dense{j}`,
 `up{i}_bn{j}`, `head_dense{h}`, `head_bn{h}`, `logits`), so converted flax
-weights load by name. Each decoder stage's 3-NN query follows its
-`UpLayerSpec.method`: "pallas" is the CUDA flash-kNN kernel (its plain
-version for CPU tensors), "dense" the brute-force query, "grid" the
-voxel-table query, and "auto" dense up to `_DENSE_KNN_MAX_SUPPORT` coarse
-points and grid above.
+weights load by name. In training mode (`model.train()`) the BatchNorms
+use batch statistics, the head's dropout draws its masks from the
+forward's dropout key as flax's `"dropout"` stream does, and `cfg.remat`
+recomputes each GridConv stage in the backward pass. Each decoder stage's
+3-NN query follows its `UpLayerSpec.method`: "pallas" is the CUDA
+flash-kNN kernel (its plain version for CPU tensors), "dense" the
+brute-force query, "grid" the voxel-table query, and "auto" dense up to
+`_DENSE_KNN_MAX_SUPPORT` coarse points and grid above.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from torch import nn
 
 from gridgcn_torch.configs.base import ModelConfig
 from gridgcn_torch.kernels.knn import flash_three_nn
-from gridgcn_torch.models.gridconv import GridConv
+from gridgcn_torch.models.gridconv import GridConv, run_stage
 from gridgcn_torch.models.layers import Dense, add_mlp, run_mlp, to_dtype
 from gridgcn_torch.ops.upsample import (
     dense_three_nn, grid_three_nn, three_nn_interpolate)
@@ -41,8 +44,6 @@ class GridGCNSegmentation(nn.Module):
         super().__init__()
         if len(cfg.up_layers) != len(cfg.layers):
             raise ValueError("seg model needs one up_layer per encoder layer")
-        if cfg.remat:
-            raise NotImplementedError("remat belongs to the training slice")
         self.cfg = cfg
         dtype = to_dtype(cfg.dtype)
         self.dtype = dtype
@@ -66,16 +67,20 @@ class GridGCNSegmentation(nn.Module):
                 raise ValueError(f"unknown decoder method {up.method!r}; "
                                  f"expected one of {_METHODS}")
             c += widths[-2 - i] or 3          # skip: level feat, else xyz
-            c = add_mlp(self, f"up{i}", c, up.mlp, dtype, bdt, cfg.fold_bn)
-        c = add_mlp(self, "head", c, cfg.head, dtype, bdt, cfg.fold_bn)
+            c = add_mlp(self, f"up{i}", c, up.mlp, dtype, bdt, cfg.fold_bn,
+                        cfg.bn_momentum)
+        c = add_mlp(self, "head", c, cfg.head, dtype, bdt, cfg.fold_bn,
+                    cfg.bn_momentum)
         self.logits = Dense(c, cfg.num_classes, torch.float32)
 
     # ---- pieces ----
 
     def encode_layer(self, i: int, xyz, feat, mask, key: np.ndarray,
                      bounds=None):
-        """GridConv stage i: one CAGQ + GCA downsampling step."""
-        return getattr(self, f"gridconv{i}")(xyz, feat, mask, key, bounds)
+        """GridConv stage i: one CAGQ + GCA downsampling step
+        (rematerialized in training with cfg.remat)."""
+        return run_stage(getattr(self, f"gridconv{i}"), self.cfg.remat,
+                         xyz, feat, mask, key, bounds)
 
     def uses_grid(self, i: int, n_support: int) -> bool:
         """Whether decoder stage i queries through the voxel grid for a
@@ -112,18 +117,25 @@ class GridGCNSegmentation(nn.Module):
         x = run_mlp(self, f"up{i}", len(up.mlp), x, self.cfg.fold_bn)
         return torch.where(d_mask[..., None], x, 0.0)
 
-    def head_logits(self, x):
-        """Per-point classification head (logits in float32)."""
-        return self.logits(run_mlp(self, "head", len(self.cfg.head), x,
-                                   self.cfg.fold_bn, self.cfg.dropout))
+    def head_logits(self, x, dropout_key: np.ndarray | None = None):
+        """Per-point classification head (logits in float32). In training,
+        head layer h drops out under flax's key for the h-th call of the
+        network's one `Dropout` submodule, `_dropout`."""
+        n = len(self.cfg.head)
+        keys = None if dropout_key is None else [
+            flax_make_rng(dropout_key, ("_dropout",), h + 1) for h in range(n)]
+        return self.logits(run_mlp(self, "head", n, x, self.cfg.fold_bn,
+                                   self.cfg.dropout, keys))
 
     # ---- full network ----
 
     def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
-                mask: torch.Tensor, key: np.ndarray) -> torch.Tensor:
+                mask: torch.Tensor, key: np.ndarray,
+                dropout_key: np.ndarray | None = None) -> torch.Tensor:
         """xyz [B, N, 3] f32, feat [B, N, in_channels] or None, mask [B, N]
-        bool, key: the jaxrng key that the JAX package passes as
-        rngs={"cagq": key} → logits [B, N, num_classes] f32."""
+        bool, key and dropout_key: the jaxrng keys that the JAX package
+        passes as rngs={"cagq": key, "dropout": dropout_key} (dropout_key
+        only in training with dropout) → logits [B, N, num_classes] f32."""
         cfg = self.cfg
         if cfg.use_xyz_feature:
             feat = xyz if feat is None else torch.cat([xyz, feat], -1)
@@ -148,4 +160,4 @@ class GridGCNSegmentation(nn.Module):
             c_feat = self.decode_stage(i, c_xyz, c_feat, c_mask,
                                        d_xyz, d_feat, d_mask, k)
             c_xyz, c_mask = d_xyz, d_mask
-        return self.head_logits(c_feat)
+        return self.head_logits(c_feat, dropout_key)

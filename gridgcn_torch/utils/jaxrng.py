@@ -8,14 +8,15 @@ indices in both packages.
 
 A key is what JAX calls its raw key data: a numpy uint32 array of shape
 (2,). Key derivation (`PRNGKey`, `split`, `fold_in`, `flax_make_rng`) runs on
-the host in numpy; draws (`bits`, `uniform`, `gumbel`, `permutation`) run on
-the tensor's device in torch int64 arithmetic masked to 32 bits (uint32 ops
-are only partly supported on CUDA). A draw also takes a [B, 2] array of keys
+the host in numpy; draws (`bits`, `uniform`, `normal`, `bernoulli`,
+`gumbel`, `permutation`) run on the tensor's device in torch int64
+arithmetic masked to 32 bits (uint32 ops are only partly supported on
+CUDA). A draw also takes a [B, 2] array of keys
 and makes the B draws in one pass, [B, *shape]: the hash is elementwise, so
 each row equals the draw under its own key.
 
-`gumbel` and `uniform` need XLA:CPU's float32 log and fused multiply-adds
-bit for bit: `utils.xla_math` repeats them.
+`gumbel`, `normal` and `uniform` need XLA:CPU's float32 log, erf⁻¹ and
+fused multiply-adds bit for bit: `utils.xla_math` repeats them.
 """
 
 from __future__ import annotations
@@ -144,6 +145,23 @@ def gumbel(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
     float32: −log(−log(u)) with u = uniform(minval=tiny, maxval=1)."""
     u = uniform(key, shape, device, minval=xla_math.TINY)
     return -xla_math.log(-xla_math.log(u))
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.normal(key, shape)`, float32 (JAX's `_normal_real`):
+    √2·erf⁻¹(u) with u = uniform(minval=nextafter(−1, 0), maxval=1)."""
+    u = uniform(key, shape, device, minval=_NORMAL_LO)
+    return _SQRT2 * xla_math.erf_inv(u)
+
+
+def bernoulli(key: np.ndarray, p: float, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)`: uniform(key, shape) < p, with
+    p rounded to float32 as JAX rounds it."""
+    return uniform(key, shape, device) < float(np.float32(p))
 
 
 def permutation(key: np.ndarray, n: int, device="cpu") -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The flash-kNN CUDA kernels against their plain versions on the card,
 and the plain-PyTorch modules of the port (samplers, dense 3-NN, the
-classifier) on CUDA against the same code on the CPU.
+classifier, jaxrng.normal, a training step) on CUDA against the same code
+on the CPU.
 
 Needs an NVIDIA GPU with nvcc: every test here is marked `cuda` and skips
 without one. This file imports neither JAX nor the JAX package, so it also
@@ -241,3 +242,78 @@ def test_classifier_on_cuda_matches_the_cpu(cuda):
         assert (a.argmax(-1) == b.argmax(-1)).all()
         np.testing.assert_allclose(b, a, rtol=0,
                                    atol=1e-4 * np.abs(a).max())
+
+
+def test_normal_draws_on_cuda_equal_the_cpu(cuda):
+    """jaxrng.normal (XLA's erf⁻¹, log1p and Cephes log repeated op by op)
+    gives the same bits on the card as on the CPU."""
+    from gridgcn_torch.utils import jaxrng, xla_math
+
+    key = jaxrng.fold_in(jaxrng.PRNGKey(3), 5)
+    a = jaxrng.normal(key, (1_000_000,))
+    b = jaxrng.normal(key, (1_000_000,), cuda).cpu()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    x = torch.linspace(-1, 1, 200_001)
+    assert torch.equal(xla_math.erf_inv(x).view(torch.int32),
+                       xla_math.erf_inv(x.to(cuda)).cpu().view(torch.int32))
+
+
+def test_seg_train_step_on_cuda_matches_the_cpu(cuda):
+    """One synthetic_tiny_seg step with method="pallas" (knn3_mxu on the
+    card, its plain version on the CPU), f32, from the same weights and
+    key, measured as chip_smoke.train_gaps measures it. With the CPU's
+    CAGQ groups and decoder 3-NN outputs pinned, the card's step against
+    the same step in float64 (chip_smoke.float64_gradients): loss and
+    gradient norm within 1e-5 relative, gradients 1e-4; its statistics
+    and determined parameters within 1e-5 of the CPU's. As trained,
+    knn3_mxu's distances differ from its plain version's by a few ulps of
+    1, which the weights 1/(d² + 1e-8) of a query that coincides with a
+    support amplify (H100: gradient norm 7.95e-4 relative, gradients
+    1.29e-2): gated at 3e-3 and 3e-2, at most 70% of the elements
+    undetermined."""
+    import dataclasses
+
+    import chip_smoke
+    from gridgcn_torch.configs import presets
+    from gridgcn_torch.models.build import build_model, init_model
+    from gridgcn_torch.train import steps
+    from gridgcn_torch.utils import jaxrng
+
+    cfg = presets.get("synthetic_tiny_seg")
+    ups = tuple(dataclasses.replace(u, method="pallas")
+                for u in cfg.model.up_layers)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, up_layers=ups))
+    rng = np.random.default_rng(0)
+    batch = {"xyz": rng.uniform(-1, 1, (4, 256, 3)).astype(np.float32),
+             "mask": np.ones((4, 256), bool),
+             "label": rng.integers(0, 4, (4, 256))}
+    _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+    key = jaxrng.PRNGKey(1)
+
+    def run(dev, **pins):
+        return chip_smoke.one_train_step(
+            torch, steps, cfg, build_model(cfg.model), sd, batch, key, dev,
+            **pins)
+
+    cpu = run("cpu")
+    exact = chip_smoke.float64_gradients(
+        torch, steps, jaxrng, cfg, build_model(cfg.model), sd, batch, key,
+        cpu)
+    n0 = knn.knn3_mxu.launches
+    card = run("cuda")
+    assert knn.knn3_mxu.launches - n0 == 4 * 2
+    pinned = run("cuda", pin_cagq=cpu["cagq"], pin_three_nn=cpu["three_nn"])
+    assert card["metrics"]["acc"] == pytest.approx(cpu["metrics"]["acc"],
+                                                   rel=1e-5)
+    ge = chip_smoke.train_gaps(torch, steps, cfg, pinned, cpu, exact)
+    ga = chip_smoke.train_gaps(torch, steps, cfg, card, cpu)
+    print(chip_smoke.train_gap_line(ge))
+    print(chip_smoke.train_gap_line(ga))
+    for g in (ge, ga):
+        assert g["loss"] <= 1e-5 and g["noise"] <= 2e-4, g
+        assert g["param"] <= 1e-5 and g["stat"] <= 1e-5, g
+        assert g["lr_moves"] <= 2, g
+    assert ge["grad_norm"] <= 1e-5 and ge["grad"] <= 1e-4, ge
+    assert ga["grad_norm"] <= 3e-3 and ga["grad"] <= 3e-2, ga
+    assert ga["undetermined"] <= 0.7, ga

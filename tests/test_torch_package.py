@@ -42,6 +42,14 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(MODULES) >= 15
 
 
+def test_training_modules_are_part_of_the_standalone_check():
+    """The training slice's modules are among those the check above
+    imports without JAX."""
+    for m in ("gridgcn_torch.train.steps", "gridgcn_torch.train.metrics",
+              "gridgcn_torch.data.augment", "gridgcn_torch.data.pipeline"):
+        assert m in MODULES, m
+
+
 def test_sources_never_name_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
     assert any(p.suffix == ".cu" for p in files)
