@@ -46,7 +46,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps, then 30 timed steps (knn3_mxu exactly 32 launches each), the
      loss falling, every BatchNorm statistic moved; then one eval pass
      over 2 held-out batches;
- 12. one JSON line of kernels, the card line, and the final JSON line.
+ 12. the trainer and evaluator CLIs: scannet_seg trained through
+     train.train() for 2 epochs of 8 steps on the hermetic fallback split
+     (64 train and 32 test crops of 8192 points), eval every epoch; the
+     JSONL records in order, knn3_mxu exactly 32 launches per step and 4
+     per cloud of each eval batch, each eval counting every scored point;
+     the step-16 checkpoint restored bit for bit; a run resumed from step
+     8 within Adam's bound of the uninterrupted one; evaluate --latency,
+     the whole-scene eval (2 votes), the evaluator CLI in a subprocess,
+     the trainer's refusal of --mesh (exit 2), and load_predictor bit for
+     bit against a Predictor on the live weights;
+ 13. one JSON line of kernels, the card line, and the final JSON line.
 The kernel phase also holds both kernels against their plain versions on
 the four decoder calls of one augmented training batch.
 --profile adds torch.profiler tables of one whole-scene request, of one
@@ -1110,6 +1120,228 @@ def profile_train_step(torch, step, state, batch, rng, latency_ms):
           f"ms step; {kernels} device launches per step")
 
 
+def counting(module, name, knn, calls, extract):
+    """Wrap module.<name> (a step factory) so that each step it makes
+    records (knn3_mxu launches during the call, extract(output)) in
+    calls."""
+    make = getattr(module, name)
+
+    def factory(*a, **k):
+        step = make(*a, **k)
+
+        def run(*b):
+            n0 = knn.knn3_mxu.launches
+            out = step(*b)
+            calls.append((knn.knn3_mxu.launches - n0, extract(out)))
+            return out
+        return run
+
+    setattr(module, name, factory)
+    return make
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_phase(torch, np, knn, presets, card, bare_ms):
+    """The trainer and evaluator CLIs on scannet_seg at full width (8 crops
+    of 8192 points, CAS x3, bf16 with f32 BatchNorm, augmentation,
+    dropout 0.5), on the hermetic fallback split (64 train and 32 test
+    crops, 8 steps an epoch). Gates: the JSONL records in order, finite
+    losses, knn3_mxu exactly 32 launches per train step and 4 per cloud of
+    each eval batch, each eval's confusion matrix counting every point
+    whose label is not the ignore label; the step-16 checkpoint restored
+    into a fresh state bit for bit; a resumed run (step-16 file deleted)
+    restoring step 8 and ending at step 16 within Adam's bound of the
+    uninterrupted run; evaluate with --latency, the whole-scene eval with
+    2 votes, the evaluator CLI in a subprocess and the trainer CLI's
+    refusal of --mesh; load_predictor's logits bit for bit those of a
+    Predictor on the live state_dict."""
+    import os
+    import shutil
+
+    from gridgcn_torch.api import Predictor, load_predictor
+    from gridgcn_torch.configs.base import apply_overrides
+    from gridgcn_torch.data.pipeline import make_dataset
+    from gridgcn_torch.models.build import init_model
+    from gridgcn_torch.train import evaluate as ev_mod
+    from gridgcn_torch.train import steps
+    from gridgcn_torch.train import train as train_mod
+    from gridgcn_torch.utils import jaxrng
+    from gridgcn_torch.utils.checkpoint import CheckpointManager
+
+    work = os.path.abspath(os.path.join("build", "chip_smoke_cli"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ck = os.path.join(work, "ck")
+    # the JSONL records go to files; their stdout copies to this sink
+    sink = open(os.path.join(work, "stdout"), "w")
+
+    def quiet():
+        return contextlib.redirect_stdout(sink)
+
+    cfg = apply_overrides(presets.get("scannet_seg"), {
+        "train.epochs": 2, "train.eval_every": 1, "train.ckpt_every": 1,
+        "train.log_every": 1, "train.ckpt_dir": ck})
+    m, d = cfg.model, cfg.data
+    assert [l.cas_iters for l in m.layers if l.sampler == "cas"] == [3, 3]
+    assert (d.num_points, d.batch_size, d.eval_batch_size) == (8192, 8, 16)
+    B, EB, N = d.batch_size, d.eval_batch_size, d.num_points
+    val = make_dataset(d, "test", m.num_classes, m.task)
+    assert (val.size, make_dataset(d, "train", m.num_classes,
+                                   m.task).size) == (32, 64)
+    scored = int((val.labels != m.ignore_label).sum())
+
+    train_calls, eval_calls = [], []
+    orig = (counting(train_mod, "make_train_step", knn, train_calls,
+                     lambda out: float(out[1]["loss"])),
+            counting(train_mod, "make_eval_step", knn, eval_calls,
+                     lambda cm: int(cm.sum())))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log1 = os.path.join(work, "train.jsonl")
+    with quiet():
+        live = train_mod.train(cfg, log_path=log1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    recs = jsonl(log1)
+    kinds = [r["kind"] for r in recs]
+    epoch_kinds = ["train_step"] * 8 + ["epoch", "eval"]
+    assert kinds == ["config", "capacity"] + 2 * epoch_kinds, kinds
+    losses = [r["loss"] for r in recs if r["kind"] == "train_step"]
+    assert len(losses) == 16 and all(np.isfinite(losses)), losses
+    assert [n for n, _ in train_calls] == [4 * B] * 16, train_calls
+    assert [n for n, _ in eval_calls] == [4 * EB] * 4, eval_calls
+    totals = [sum(t for _, t in eval_calls[i:i + 2]) for i in (0, 2)]
+    assert totals == [scored, scored], (totals, scored)
+    epochs = [r for r in recs if r["kind"] == "epoch"]
+    ms = [B * N / r["points_per_sec"] * 1e3 for r in epochs]
+    evals = [r for r in recs if r["kind"] == "eval"]
+    print(f"cli train scannet_seg (2 epochs x 8 steps, eval each epoch on "
+          f"32 crops): records {len(recs)} in order; knn3_mxu launches "
+          f"per train step {sorted({n for n, _ in train_calls})}, per eval "
+          f"batch of {EB} {sorted({n for n, _ in eval_calls})}; eval "
+          f"confusion totals {totals} (labels != ignore_label: {scored}); "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; eval overall_acc "
+          f"{[round(r['overall_acc'], 4) for r in evals]}")
+
+    # restore: the step-16 checkpoint into a fresh state, bit for bit
+    mgr = CheckpointManager(ck, cfg)
+    assert mgr.steps() == [8, 16], mgr.steps()
+    model, sd = init_model(m, torch.Generator().manual_seed(1))
+    fresh = steps.create_train_state(cfg, model, sd, 8)
+    out = mgr.restore(fresh)
+    live_sd, fresh_sd = live.model.state_dict(), fresh.model.state_dict()
+    assert all(torch.equal(live_sd[k], fresh_sd[k]) for k in live_sd)
+    assert all(torch.equal(a, b) for a, b in zip(
+        live.tx.mu + live.tx.nu, fresh.tx.mu + fresh.tx.nu))
+    assert fresh.step == live.step == 16
+    assert np.array_equal(out["rng"], jaxrng.PRNGKey(cfg.train.seed))
+    print(f"cli restore: step 16 into a fresh state: {len(live_sd)} "
+          f"state_dict tensors, {2 * len(live.tx.mu)} Adam moments, count "
+          f"and key equal bit for bit")
+
+    # resume: delete the newest file, train again with the same config
+    os.remove(os.path.join(ck, "ckpt-16.pt"))
+    log2 = os.path.join(work, "resume.jsonl")
+    with quiet():
+        resumed = train_mod.train(cfg, log_path=log2)
+    for name, f in zip(("make_train_step", "make_eval_step"), orig):
+        setattr(train_mod, name, f)
+    rec2 = jsonl(log2)
+    assert [r["kind"] for r in rec2] == ["config", "capacity", "restore"] \
+        + epoch_kinds, [r["kind"] for r in rec2]
+    assert rec2[2]["step"] == 8 and rec2[2]["epoch"] == 1
+    assert resumed.step == 16
+    again = [r["loss"] for r in rec2 if r["kind"] == "train_step"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(again, losses[8:]))
+    res_sd = resumed.model.state_dict()
+    param_gap = max(float((res_sd[k] - live_sd[k]).abs().max())
+                    for k, _ in resumed.model.named_parameters())
+    stat_gap = max(float(((res_sd[k] - live_sd[k]).abs()
+                          / live_sd[k].abs().clamp_min(1e-3)).max())
+                   for k in res_sd if "running" in k)
+    adam_bound = 8 * 3.2 * cfg.train.lr
+    print(f"cli resume: restored step 8, ended at step 16; against the "
+          f"uninterrupted run (0 would be bit for bit): epoch-2 losses "
+          f"within {loss_gap:.3e} relative "
+          f"(gate 5e-2), parameters within {param_gap:.3e} (gate: Adam's "
+          f"bound over 8 steps, {adam_bound:.4g}), BatchNorm statistics "
+          f"within {stat_gap:.3e} relative")
+    assert loss_gap <= 5e-2 and param_gap <= adam_bound
+
+    # evaluate: the crop eval with --latency, the whole-scene eval
+    lg = os.path.join(work, "eval.jsonl")
+    with quiet():
+        ev_mod.evaluate(ck, latency=True, log_path=lg)
+    lat = [r for r in jsonl(lg) if r["kind"] == "latency"]
+    assert len(lat) == 1 and lat[0]["batch_ms"] > 0
+    ws_totals = []
+    cm_fn = ev_mod.confusion_matrix
+
+    def counted(*a, **k):
+        cm = cm_fn(*a, **k)
+        ws_totals.append(int(cm.sum()))
+        return cm
+
+    ev_mod.confusion_matrix = counted
+    lw = os.path.join(work, "whole.jsonl")
+    n0 = knn.knn3_mxu.launches
+    with quiet():
+        s = ev_mod.evaluate_whole_scenes(ck, votes=2, log_path=lw)
+    ev_mod.confusion_matrix = cm_fn
+    ws_launches = knn.knn3_mxu.launches - n0
+    assert "voxel_acc" in s and 0 <= float(s["voxel_acc"]) <= 1
+    assert sum(ws_totals) == scored, (sum(ws_totals), scored)
+    assert ws_launches == 4 * 2 * val.size, ws_launches
+    whole = jsonl(lw)[-1]
+    print(f"cli evaluate: batch_ms {lat[0]['batch_ms']} (CUDA events, "
+          f"{EB} x {N} points, 20 iterations after 2 warm-up), "
+          f"points_per_sec {lat[0]['points_per_sec']:.1f}; whole-scene "
+          f"votes=2 over {val.size} scenes: voxel_acc "
+          f"{whole['voxel_acc']:.4f}, overall_acc {whole['overall_acc']:.4f},"
+          f" confusion total {sum(ws_totals)}, knn3_mxu launches "
+          f"{ws_launches}")
+
+    # the CLIs as a user runs them, in their own processes
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gridgcn_torch.train.evaluate", "--ckpt-dir",
+         ck, "--whole-scene", "--votes", "1"], capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert last["kind"] == "whole_scene_eval" and last["votes"] == 1, last
+    cli_s = time.perf_counter() - t0
+    proc = subprocess.run(
+        [sys.executable, "-m", "gridgcn_torch.train.train", "--mesh", "2"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2 and "items 18-19" in proc.stderr, \
+        (proc.returncode, proc.stderr[-2000:])
+    print(f"cli subprocess: evaluate --whole-scene --votes 1 exit 0 in "
+          f"{cli_s:.1f} s, last line a whole_scene_eval record "
+          f"(voxel_acc {last['voxel_acc']:.4f}); train --mesh 2 exit 2")
+
+    # serve the checkpoint
+    pred = load_predictor(ck)
+    want = Predictor(cfg, res_sd)
+    xyz = val.points[0]
+    key = jaxrng.PRNGKey(5)
+    assert pred.step == 16
+    assert np.array_equal(pred(xyz, rng=key), want(xyz, rng=key))
+    print("cli serve: load_predictor(step 16) logits on one crop bit for "
+          "bit those of Predictor(cfg, live state_dict)")
+    print(f"cli numbers [{card}]: ms per step (epoch wall / 8 steps) "
+          f"{[round(x, 3) for x in ms]}, points_per_sec "
+          f"{[round(r['points_per_sec'], 1) for r in epochs]}; bare step "
+          f"loop median {bare_ms:.3f} ms (training phase, CUDA events); "
+          f"peak memory {peak:.1f} MiB")
+    sink.close()
+    return ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1218,8 +1450,10 @@ def main() -> int:
     rng_phase(torch, jaxrng, xla_math)
     train_correctness_phase(torch, np, presets, init_model, build_model,
                             steps, synthetic_scene_surface, jaxrng)
-    train_phase(torch, np, knn, train_cfg, train_ds, heldout, init_model,
-                build_model, steps, jaxrng, args.profile)
+    bare_ms = train_phase(torch, np, knn, train_cfg, train_ds, heldout,
+                          init_model, build_model, steps, jaxrng,
+                          args.profile)
+    cli_phase(torch, np, knn, presets, card, bare_ms)
 
     replaces = {"knn3_mxu": "gridgcn_tpu/ops/pallas/knn.py:97",
                 "knn3_exact": "gridgcn_tpu/ops/pallas/knn.py:55"}

@@ -5,6 +5,7 @@
     logits = predict(points)                      # [N,3] or [B,N,3]
     labels = predict.predict_classes(points)
     scene = predict.predict_scene(points, votes=2)
+    predict = load_predictor("checkpoints")       # a trainer's checkpoint
 
 Every preset serves: the classifiers and the segmentation networks with
 any decoder method. The serving protocol is the JAX package's: BatchNorm
@@ -13,8 +14,7 @@ inference dtype (`models.fold.fold_inference`). Logits are float32 numpy
 arrays: [C] / [B, C] for classification, [N, C] / [B, N, C] for per-point
 tasks. The CAGQ randomness comes from a jaxrng key
 (default `PRNGKey(0)`), so the same key gives the JAX package's indices.
-Not ported yet: orbax checkpoints (`load_predictor`), mesh serving and
-`predict_scenes`.
+Not ported yet: mesh serving and `predict_scenes`.
 """
 
 from __future__ import annotations
@@ -112,7 +112,18 @@ class Predictor:
 
 
 def load_predictor(ckpt_dir: str, step: Optional[int] = None,
-                   mesh=None) -> Predictor:
-    raise NotImplementedError(
-        "checkpoint loading is not ported yet: build a Predictor from a "
-        "config and a state_dict")
+                   device="cuda", mesh=None) -> Predictor:
+    """A Predictor for a checkpoint directory written by the trainer: its
+    config and the newest (or the given) step's weights. The step served
+    is `.step`."""
+    from gridgcn_torch.utils.checkpoint import CheckpointManager
+
+    if mesh is not None:
+        raise NotImplementedError("mesh serving is not ported yet")
+    ckpt = CheckpointManager(ckpt_dir, CheckpointManager.load_config(ckpt_dir))
+    payload = ckpt.read(step)
+    if payload is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    pred = Predictor(ckpt.cfg, payload["model"], device=device)
+    pred.step = int(payload["optimizer"]["count"])
+    return pred

@@ -1,14 +1,31 @@
-"""A materialized split and its shuffled batches (the JAX package's
-`data/pipeline.Dataset`): the same seed gives the same batch order, the
-same padding of the final partial batch and the same `example_mask`.
-Batches are numpy; the train and eval steps move them to their device."""
+"""Datasets, their batches and the device feed (the JAX package's
+`data/pipeline.py`).
+
+`make_dataset` builds a split from the real files under `cfg.root`
+(ModelNet40 HDF5, S3DIS blocks, ScanNet npy) when they exist, else from
+the synthetic generators, with the JAX package's sizes and seeds: the same
+arrays, bit for bit. A `Dataset` yields shuffled numpy batches (the same
+seed gives the same order, the same padding of a final partial batch and
+the same `example_mask`); a `Prefetcher` assembles the next batches and
+moves them to the device in a background thread while a step runs.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+import os
+import queue
+import threading
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
+import torch
+
+from gridgcn_torch.configs.base import DataConfig
+from gridgcn_torch.data import synthetic
+from gridgcn_torch.data.modelnet40 import load_modelnet40
+from gridgcn_torch.data.s3dis import load_s3dis
+from gridgcn_torch.data.scannet import load_scannet
 
 
 @dataclasses.dataclass
@@ -58,3 +75,162 @@ class Dataset:
             if self.features is not None:
                 batch["feat"] = np.take(self.features, idx, axis=0)
             yield batch
+
+
+def make_dataset(cfg: DataConfig, split: str, num_classes: int,
+                 task: str) -> Dataset:
+    """Build a split for a config; fall back to synthetic when files absent."""
+    root = cfg.root
+    if cfg.dataset == "modelnet40" and os.path.isdir(
+            os.path.join(root, "modelnet40_ply_hdf5_2048")):
+        pts, labels = load_modelnet40(root, split, cfg.num_points)
+        return Dataset(pts, labels, task="cls", num_classes=40)
+    if cfg.dataset == "s3dis" and os.path.isdir(os.path.join(root, "s3dis")):
+        pts, feats, labels = load_s3dis(root, split, cfg.num_points,
+                                        holdout=cfg.s3dis_holdout)
+        return Dataset(pts, labels, features=feats, task="seg",
+                       num_classes=13)
+    if cfg.dataset == "scannet" and os.path.isdir(
+            os.path.join(root, "scannet")):
+        pts, labels = load_scannet(root, split, cfg.num_points)
+        return Dataset(pts, labels, task="seg", num_classes=21)
+
+    if cfg.dataset == "synthetic_shapes40":
+        # 40-class shape-family ModelNet40 stand-in (VERDICT r2 #3):
+        # preset-scale convergence evidence for the classification configs
+        base = cfg.synthetic_size or 1600
+        n = base if split == "train" else max(base // 4, 40)
+        pts, labels = synthetic.synthetic_shapes40(
+            n, cfg.num_points, seed=0 if split == "train" else 1)
+        return Dataset(pts, labels, task="cls", num_classes=40)
+
+    if cfg.dataset == "synthetic_scene":
+        # surface-like indoor scenes with part labels (floor/ceiling/wall/
+        # object) — a semantically meaningful whole-scene seg stand-in
+        # whose density statistics match real scans (data/synthetic.py)
+        base = cfg.synthetic_size or 24
+        n = base if split == "train" else max(base // 3, 8)
+        seed0 = 0 if split == "train" else 1000
+        out = [synthetic.synthetic_scene_surface(
+            cfg.num_points, seed=seed0 + i, return_labels=True)
+            for i in range(n)]
+        pts = np.stack([p for p, _ in out])
+        labels = np.stack([l for _, l in out])
+        feats = None
+        if cfg.num_feats > 0:
+            # rgb-like + normalized-xyz features so featured configs
+            # (s3dis_seg: in_channels=6, feat cols 3:6 xyz-like — SURVEY
+            # §2.3 F-13) have a preset-scale convergence stand-in
+            # (VERDICT r3 #7). rgb correlates with the part class the way
+            # real scans' colors correlate with semantics: a per-class
+            # palette, tinted per scene, with per-point noise.
+            rngf = np.random.default_rng(seed0 + 7777)
+            palette = np.array([[0.55, 0.45, 0.35],   # floor
+                                [0.92, 0.92, 0.90],   # ceiling
+                                [0.75, 0.70, 0.60],   # wall
+                                [0.30, 0.50, 0.70]])  # object
+            rgb = palette[labels]                      # [n, N, 3]
+            rgb = rgb + rngf.normal(0, 0.1, (n, 1, 3))        # scene tint
+            rgb = np.clip(rgb + rngf.normal(0, 0.05, rgb.shape), 0, 1)
+            mins = pts.min(axis=1, keepdims=True)
+            span = np.maximum(pts.max(axis=1, keepdims=True) - mins, 1e-6)
+            nxyz = (pts - mins) / span
+            feats = np.concatenate([rgb, nxyz], axis=-1)[
+                ..., :cfg.num_feats].astype(np.float32)
+        return Dataset(pts, labels, features=feats, task="seg",
+                       num_classes=4)
+
+    if cfg.dataset == "synthetic_field":
+        # labels = thresholded smooth hidden fields observed only through
+        # NOISY per-point features: per-point evidence is ~chance, a
+        # neighborhood aggregate is ~0.9 — the mid-band convergence-gate
+        # task (VERDICT r4 #4; generator docstring in data/synthetic.py)
+        base = cfg.synthetic_size or 24
+        n = base if split == "train" else max(base // 3, 8)
+        seed0 = 0 if split == "train" else 1000
+        out = [synthetic.synthetic_feature_field(
+            cfg.num_points, seed=seed0 + i,
+            num_feats=max(cfg.num_feats, 2)) for i in range(n)]
+        pts = np.stack([p for p, _, _ in out])
+        feats = (np.stack([f for _, f, _ in out])[..., :cfg.num_feats]
+                 if cfg.num_feats > 0 else None)
+        labels = np.stack([l for _, _, l in out])
+        return Dataset(pts, labels, features=feats, task="seg",
+                       num_classes=4)
+
+    # hermetic fallback (also cfg.dataset == 'synthetic')
+    n = 64 if split == "train" else 32
+    if task == "cls":
+        pts, labels = synthetic.synthetic_classification(
+            n, cfg.num_points, num_classes, seed=0 if split == "train" else 1)
+    else:
+        pts, labels = synthetic.synthetic_segmentation(
+            n, cfg.num_points, num_classes, seed=0 if split == "train" else 1)
+    feats = None
+    if cfg.num_feats > 0:
+        rng = np.random.default_rng(7)
+        feats = rng.uniform(0, 1, size=(n, cfg.num_points, cfg.num_feats)
+                            ).astype(np.float32)
+    return Dataset(pts, labels, features=feats, task=task,
+                   num_classes=num_classes)
+
+
+# the dtypes the train and eval steps take
+_DTYPES = {"xyz": torch.float32, "feat": torch.float32, "mask": torch.bool,
+           "label": torch.int64, "example_mask": torch.bool}
+
+
+def to_device(batch: dict, device) -> dict:
+    """A batch (numpy arrays or tensors) as tensors of the steps' dtypes on
+    `device`; keys the steps do not read are left out. To a CUDA device a
+    host array is pinned and sent with a non-blocking copy on the current
+    stream, which orders it before the steps that read it."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if k not in _DTYPES:
+            continue
+        if torch.is_tensor(v):
+            out[k] = v.to(dev, _DTYPES[k])
+            continue
+        t = torch.as_tensor(np.asarray(v)).to(_DTYPES[k])
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out[k] = t
+    return out
+
+
+class Prefetcher:
+    """Background-thread batch prefetch: assembles up to `depth` upcoming
+    batches and puts each on the device (`put`, e.g. `to_device`) while
+    the current step runs. Batches come out in order; an exception in the
+    worker is raised again at the consuming `next()`."""
+
+    _SENTINEL = object()
+
+    def __init__(self, batches: Iterable, put: Callable, depth: int = 2):
+        self._q = queue.Queue(maxsize=max(1, depth))
+        self._err = None
+
+        def run():
+            try:
+                for b in batches:
+                    self._q.put(put(b))
+            except BaseException as e:     # noqa: BLE001 — re-raised below
+                self._err = e
+            finally:
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._SENTINEL:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item

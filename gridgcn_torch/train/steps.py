@@ -28,6 +28,8 @@ from torch import nn
 
 from gridgcn_torch.configs.base import Config
 from gridgcn_torch.data.augment import augment_batch, rotation_y
+from gridgcn_torch.data.native import label_histogram
+from gridgcn_torch.data.pipeline import to_device
 from gridgcn_torch.models.layers import update_batch_stats
 from gridgcn_torch.train.metrics import confusion_matrix
 from gridgcn_torch.utils import jaxrng
@@ -144,6 +146,23 @@ class Adam:
         torch._foreach_add_(self.params, u)
         self.count = t
 
+    def state_dict(self) -> dict:
+        """The optimizer's state: the moments (in `params`' order) and the
+        step count."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict()` into this optimizer's moments (on their
+        device) and set its step count."""
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            if len(mine) != len(theirs):
+                raise ValueError(f"optimizer state holds {len(theirs)} "
+                                 f"moments, this optimizer {len(mine)}")
+            for m, t in zip(mine, theirs):
+                m.copy_(t)
+        self.count = int(state["count"])
+
 
 def make_optimizer(cfg: Config, params, steps_per_epoch: int) -> Adam:
     """The optimizer over params for cfg.train: Adam, AdamW when
@@ -185,16 +204,6 @@ def create_train_state(cfg: Config, model: nn.Module, state_dict,
     return TrainState(model=model, tx=tx, device=dev)
 
 
-_DTYPES = {"xyz": torch.float32, "feat": torch.float32, "mask": torch.bool,
-           "label": torch.int64, "example_mask": torch.bool}
-
-
-def _to_device(batch: dict, dev: torch.device) -> dict:
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
-                               dtype=_DTYPES[k], device=dev)
-            for k, v in batch.items() if k in _DTYPES}
-
-
 def _loss_and_logits(cfg: Config, logits: torch.Tensor, batch: dict,
                      class_weights: Optional[torch.Tensor] = None):
     """(loss, acc) of the JAX package: cls cross-entropy (label smoothing
@@ -231,9 +240,7 @@ def class_weights_from_dataset(labels, num_classes: int,
                                ) -> torch.Tensor:
     """Inverse-sqrt-frequency class weights (seg), float32 on the CPU. The
     ignore class gets weight 0 and leaves the frequency normalization."""
-    lab = np.asarray(labels).reshape(-1)
-    lab = lab[(lab >= 0) & (lab < num_classes)]
-    hist = np.bincount(lab, minlength=num_classes).astype(np.float64)
+    hist = label_histogram(labels, num_classes).astype(np.float64)
     if ignore_label is not None:
         hist[ignore_label] = 0.0
     freq = hist / max(hist.sum(), 1.0)
@@ -255,7 +262,7 @@ def make_train_step(cfg: Config, class_weights=None):
 
     def step(state: TrainState, batch: dict, rng: np.ndarray):
         model, dev = state.model, state.device
-        b = _to_device(batch, dev)
+        b = to_device(batch, dev)
         cw = None if class_weights is None else \
             torch.as_tensor(class_weights, device=dev)
         k_aug, k_cagq, k_drop = jaxrng.split(jaxrng.fold_in(rng, state.step),
@@ -301,7 +308,7 @@ def make_eval_step(cfg: Config):
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict, rng: np.ndarray):
-        b = _to_device(batch, state.device)
+        b = to_device(batch, state.device)
         logits = state.model.eval()(b["xyz"], b.get("feat"), b["mask"], rng)
         return confusion_matrix(logits, b["label"], cfg.model.num_classes,
                                 _confusion_mask(cfg, b))
@@ -320,7 +327,7 @@ def make_voting_eval_step(cfg: Config, votes: int):
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict, rng: np.ndarray):
-        b = _to_device(batch, state.device)
+        b = to_device(batch, state.device)
         model = state.model.eval()
         acc = None
         for v in range(votes):

@@ -43,10 +43,17 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_training_modules_are_part_of_the_standalone_check():
-    """The training slice's modules are among those the check above
-    imports without JAX."""
+    """The training slice's modules, and the CLIs' with their data,
+    checkpoint, logging, debug and profiling modules, are among those the
+    check above imports without JAX."""
     for m in ("gridgcn_torch.train.steps", "gridgcn_torch.train.metrics",
-              "gridgcn_torch.data.augment", "gridgcn_torch.data.pipeline"):
+              "gridgcn_torch.data.augment", "gridgcn_torch.data.pipeline",
+              "gridgcn_torch.train.train", "gridgcn_torch.train.evaluate",
+              "gridgcn_torch.data.native", "gridgcn_torch.data.synthetic",
+              "gridgcn_torch.data.modelnet40", "gridgcn_torch.data.s3dis",
+              "gridgcn_torch.data.scannet", "gridgcn_torch.utils.checkpoint",
+              "gridgcn_torch.utils.logging", "gridgcn_torch.utils.debug",
+              "gridgcn_torch.utils.profiling"):
         assert m in MODULES, m
 
 
@@ -99,13 +106,13 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_entry_points_raise():
-    """What stays unported raises: orbax checkpoints, mesh serving and the
-    scene-batched mesh tier."""
+    """What stays unported raises: mesh serving and the scene-batched mesh
+    tier."""
     from gridgcn_torch import api
     from gridgcn_torch.models.build import init_model
 
     with pytest.raises(NotImplementedError):
-        api.load_predictor("checkpoints")
+        api.load_predictor("checkpoints", mesh=2)
     cfg = tpresets.get("synthetic_tiny_seg")
     _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
