@@ -20,30 +20,34 @@ from gridgcn_torch.utils import jaxrng
 
 
 def augment_draws(key: np.ndarray, B: int, N: int, cfg: DataConfig,
-                  device) -> dict:
+                  device, row0: int = 0) -> dict:
     """Every draw `augment_batch` makes for key and config: theta [B],
     scale [B, 1, 1], shift [B, 1, 3], noise [B, N, 3] (the clipped
     jitter), ratio [B, 1] and u [B, N] (point dropout); a draw that the
-    config turns off is absent. The key splits 6 ways as in JAX."""
+    config turns off is absent. The key splits 6 ways as in JAX. The B
+    clouds are rows [row0, row0 + B) of the batch whose key this is."""
     k_rot, k_scale, k_shift, k_jit, k_drop, k_dropn = jaxrng.split(key, 6)
     out = {}
     if cfg.rotate:
-        out["theta"] = jaxrng.uniform(k_rot, (B,), device, 0.0, 2.0 * math.pi)
+        out["theta"] = jaxrng.uniform(k_rot, (B,), device, 0.0, 2.0 * math.pi,
+                                      row0=row0)
     if cfg.scale_high > cfg.scale_low:
         out["scale"] = jaxrng.uniform(k_scale, (B, 1, 1), device,
-                                      cfg.scale_low, cfg.scale_high)
+                                      cfg.scale_low, cfg.scale_high,
+                                      row0=row0)
     if cfg.shift_range > 0:
         out["shift"] = jaxrng.uniform(k_shift, (B, 1, 3), device,
-                                      -cfg.shift_range, cfg.shift_range)
+                                      -cfg.shift_range, cfg.shift_range,
+                                      row0=row0)
     if cfg.jitter_sigma > 0:
         sigma = float(np.float32(cfg.jitter_sigma))
         out["noise"] = torch.clamp(
-            sigma * jaxrng.normal(k_jit, (B, N, 3), device),
+            sigma * jaxrng.normal(k_jit, (B, N, 3), device, row0=row0),
             -cfg.jitter_clip, cfg.jitter_clip)
     if cfg.dropout_max > 0:
         out["ratio"] = jaxrng.uniform(k_drop, (B, 1), device,
-                                      maxval=cfg.dropout_max)
-        out["u"] = jaxrng.uniform(k_dropn, (B, N), device)
+                                      maxval=cfg.dropout_max, row0=row0)
+        out["u"] = jaxrng.uniform(k_dropn, (B, N), device, row0=row0)
     return out
 
 
@@ -58,15 +62,17 @@ def rotation_y(theta: torch.Tensor) -> torch.Tensor:
 
 
 def augment_batch(xyz: torch.Tensor, mask: torch.Tensor, key: np.ndarray,
-                  cfg: DataConfig, feat: torch.Tensor | None = None):
+                  cfg: DataConfig, feat: torch.Tensor | None = None,
+                  row0: int = 0):
     """Rotation (up axis) + scale + shift + jitter + point dropout:
     xyz [B, N, 3] f32, mask [B, N] bool, feat [B, N, C] or None → (xyz,
     mask, feat). The feature columns `cfg.feat_geo_channels` rotate with
-    the cloud; dropped points leave the mask."""
+    the cloud; dropped points leave the mask. The clouds are rows [row0,
+    row0 + B) of the batch whose key this is."""
     if not cfg.augment:
         return xyz, mask, feat
     B, N = xyz.shape[:2]
-    d = augment_draws(key, B, N, cfg, xyz.device)
+    d = augment_draws(key, B, N, cfg, xyz.device, row0)
     if "theta" in d:
         rot = rotation_y(d["theta"])                           # [B, 3, 3]
         xyz = torch.bmm(xyz, rot)

@@ -13,15 +13,21 @@ function beside its wrapper:
 * `knn3_exact` — replaces `_knn_kernel` (via `flash_knn`): fp32 (q−s)²,
   bit for bit the TPU kernel's packed keys and truncated d².
 
-Dispatch is by the device of the tensors passed in: a CUDA tensor launches
-the kernel or raises, a CPU tensor runs the plain version. Nothing falls
-back. The kernels are compiled from the package's sources with `nvcc` on
-first CUDA use (`build_kernels`), never at import. Each wrapper counts the
-calls in which it launches its kernels in a plain integer attribute,
-`knn3_mxu.launches`; `knn3_mxu` also adds its pack to
-`mxu_pack_support.launches`. A call allocates twice: d2 and idx are views
-of one int32 tensor that also holds the mxu call's packed supports, valid
-is a tensor of its own.
+Each kernel is a `torch.library` custom op (`gridgcn::knn3_mxu`,
+`gridgcn::mxu_pack_support`, `gridgcn::knn3_exact`), registered when this
+module is imported: a CUDA implementation (the launch), a CPU
+implementation (the plain version) and a fake one (the output shapes and
+types), so that `torch.export` traces through the call and an exported
+program runs the kernel; a loader imports this module first. Dispatch is by
+the device of the tensors passed in: a CUDA tensor launches the kernel or
+raises, a CPU tensor runs the plain version. Nothing falls back. The
+kernels are compiled from the package's sources with `nvcc` on first CUDA
+use (`build_kernels`), never at import. The CUDA implementation counts the
+calls in which it launches its kernels in a plain integer attribute of the
+public wrapper, `knn3_mxu.launches`, also inside an exported program;
+`knn3_mxu` also adds its pack to `mxu_pack_support.launches`. Every output
+is a tensor of its own (a custom op's outputs may not alias), and the mxu
+call's packed supports a fourth.
 """
 
 from __future__ import annotations
@@ -161,15 +167,20 @@ def _pack_bytes(ns: int) -> int:
     return -(-ns // 128) * 128 * 32 + 16
 
 
-def _outputs(scratch_bytes: int, nq: int, like: torch.Tensor) -> tuple:
-    """Two allocations on `like`'s device: one int32 tensor whose first
-    rows hold `scratch_bytes` of kernel scratch (16-byte aligned) and whose
-    next rows are d2 f32 [nq, 3] and idx int32 [nq, 3]; valid bool [nq, 3]
-    on its own. Returns (int32 tensor, d2, idx, valid)."""
-    o = -(-scratch_bytes // 12)
-    buf = like.new_empty((o + 2 * nq, 3), dtype=torch.int32)
-    return (buf, buf[o:o + nq].view(torch.float32), buf[o + nq:],
+def _outputs(nq: int, like: torch.Tensor) -> tuple:
+    """d2 f32 [nq, 3], idx int32 [nq, 3] and valid bool [nq, 3] on
+    `like`'s device, each a tensor of its own."""
+    return (like.new_empty((nq, 3)),
+            like.new_empty((nq, 3), dtype=torch.int32),
             like.new_empty((nq, 3), dtype=torch.bool))
+
+
+_KNN_SCHEMA = ("(Tensor q_xyz, Tensor q_mask, Tensor s_xyz, Tensor s_mask)"
+               " -> (Tensor, Tensor, Tensor)")
+
+
+def _knn_fake(q_xyz, q_mask, s_xyz, s_mask):
+    return _outputs(q_xyz.shape[0], q_xyz)
 
 
 def visit_step(n: int) -> int:
@@ -222,26 +233,38 @@ def knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask):
     return d2, top & low, (d2 < _VALID_MAX) & q_mask[:, None]
 
 
-def knn3_exact(q_xyz, q_mask, s_xyz, s_mask):
-    """Exact 3-NN: q_xyz [Nq, 3] f32, q_mask [Nq] bool, s_xyz [Ns, 3] f32,
-    s_mask [Ns] bool → (d2 [Nq, 3] f32 truncated, idx [Nq, 3] int32,
-    valid [Nq, 3] bool)."""
-    dev = _device(q_xyz, q_mask, s_xyz, s_mask)
-    if dev.type == "cpu":
-        return knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask)
+@torch.library.custom_op("gridgcn::knn3_exact", mutates_args=(),
+                         device_types="cpu", schema=_KNN_SCHEMA)
+def _knn3_exact_op(q_xyz, q_mask, s_xyz, s_mask):
+    return knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask)
+
+
+_knn3_exact_op.register_fake(_knn_fake)
+
+
+@_knn3_exact_op.register_kernel("cuda")
+def _knn3_exact_cuda(q_xyz, q_mask, s_xyz, s_mask):
     nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
-    _, out_d, out_i, out_v = _outputs(0, nq, q_xyz)
+    out_d, out_i, out_v = _outputs(nq, q_xyz)
     if nq == 0:
         return out_d, out_i, out_v
     ns_pad, idx_bits = exact_layout(ns)
     err = _lib("knn.cu").knn3_exact_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
         s_mask.data_ptr(), nq, ns, ns_pad, idx_bits, out_d.data_ptr(),
-        out_i.data_ptr(), out_v.data_ptr(), _stream(dev))
+        out_i.data_ptr(), out_v.data_ptr(), _stream(q_xyz.device))
     if err != 0:
         raise RuntimeError(f"knn3_exact launch failed: CUDA error {err}")
     knn3_exact.launches += 1
     return out_d, out_i, out_v
+
+
+def knn3_exact(q_xyz, q_mask, s_xyz, s_mask):
+    """Exact 3-NN: q_xyz [Nq, 3] f32, q_mask [Nq] bool, s_xyz [Ns, 3] f32,
+    s_mask [Ns] bool → (d2 [Nq, 3] f32 truncated, idx [Nq, 3] int32,
+    valid [Nq, 3] bool). The custom op `gridgcn::knn3_exact`."""
+    _device(q_xyz, q_mask, s_xyz, s_mask)
+    return torch.ops.gridgcn.knn3_exact(q_xyz, q_mask, s_xyz, s_mask)
 
 
 knn3_exact.launches = 0
@@ -335,26 +358,42 @@ def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask):
     return d2, idx, (d2 < _VALID_MAX) & q_mask[:, None]
 
 
-def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask):
-    """Near-exact 3-NN from split-bf16 distances: q_xyz [Nq, 3] f32,
-    q_mask [Nq] bool, s_xyz [Ns, 3] f32, s_mask [Ns] bool → (d2 [Nq, 3]
-    f32, idx [Nq, 3] int32, valid [Nq, 3] bool)."""
-    dev = _device(q_xyz, q_mask, s_xyz, s_mask)
-    if dev.type == "cpu":
-        return knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask)
+@torch.library.custom_op("gridgcn::knn3_mxu", mutates_args=(),
+                         device_types="cpu", schema=_KNN_SCHEMA)
+def _knn3_mxu_op(q_xyz, q_mask, s_xyz, s_mask):
+    return knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask)
+
+
+_knn3_mxu_op.register_fake(_knn_fake)
+
+
+@_knn3_mxu_op.register_kernel("cuda")
+def _knn3_mxu_cuda(q_xyz, q_mask, s_xyz, s_mask):
     nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
-    buf, out_d, out_i, out_v = _outputs(_pack_bytes(ns), nq, q_xyz)
+    out_d, out_i, out_v = _outputs(nq, q_xyz)
     if nq == 0:
         return out_d, out_i, out_v
+    pack = torch.empty(_pack_bytes(ns), dtype=torch.uint8,
+                       device=q_xyz.device)
     err = _lib("knn.cu").knn3_mxu_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
-        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, buf.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(), _stream(dev))
+        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, pack.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
+        _stream(q_xyz.device))
     if err != 0:
         raise RuntimeError(f"knn3_mxu launch failed: CUDA error {err}")
     knn3_mxu.launches += 1
     mxu_pack_support.launches += 1
     return out_d, out_i, out_v
+
+
+def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask):
+    """Near-exact 3-NN from split-bf16 distances: q_xyz [Nq, 3] f32,
+    q_mask [Nq] bool, s_xyz [Ns, 3] f32, s_mask [Ns] bool → (d2 [Nq, 3]
+    f32, idx [Nq, 3] int32, valid [Nq, 3] bool). The custom op
+    `gridgcn::knn3_mxu`."""
+    _device(q_xyz, q_mask, s_xyz, s_mask)
+    return torch.ops.gridgcn.knn3_mxu(q_xyz, q_mask, s_xyz, s_mask)
 
 
 knn3_mxu.launches = 0
@@ -376,23 +415,39 @@ def mxu_pack_support_ref(s_xyz, s_mask):
                       torch.cat([c, c.new_zeros(1)]).view(torch.uint8)])
 
 
-def mxu_pack_support(s_xyz, s_mask):
-    """The support operand of `knn3_mxu` as its kernel reads it: s_xyz
-    [Ns, 3] f32, s_mask [Ns] bool → uint8 [ns_pad·32 + 16]. `knn3_mxu`
-    launches the same pack kernel itself; this wrapper holds it against
-    its plain version."""
-    dev = _device(s_xyz, s_mask)
-    if dev.type == "cpu":
-        return mxu_pack_support_ref(s_xyz, s_mask)
+@torch.library.custom_op(
+    "gridgcn::mxu_pack_support", mutates_args=(), device_types="cpu",
+    schema="(Tensor s_xyz, Tensor s_mask) -> Tensor")
+def _mxu_pack_op(s_xyz, s_mask):
+    return mxu_pack_support_ref(s_xyz, s_mask)
+
+
+@_mxu_pack_op.register_fake
+def _mxu_pack_fake(s_xyz, s_mask):
+    return s_xyz.new_empty((_pack_bytes(s_xyz.shape[0]),), dtype=torch.uint8)
+
+
+@_mxu_pack_op.register_kernel("cuda")
+def _mxu_pack_cuda(s_xyz, s_mask):
     ns = _check_supports(s_xyz, s_mask)
-    buf = torch.empty(_pack_bytes(ns), dtype=torch.uint8, device=dev)
+    buf = torch.empty(_pack_bytes(ns), dtype=torch.uint8,
+                      device=s_xyz.device)
     err = _lib("knn.cu").mxu_pack_launch(
         s_xyz.data_ptr(), s_mask.data_ptr(), ns, -(-ns // 128) * 128,
-        buf.data_ptr(), _stream(dev))
+        buf.data_ptr(), _stream(s_xyz.device))
     if err != 0:
         raise RuntimeError(f"mxu_pack launch failed: CUDA error {err}")
     mxu_pack_support.launches += 1
     return buf
+
+
+def mxu_pack_support(s_xyz, s_mask):
+    """The support operand of `knn3_mxu` as its kernel reads it: s_xyz
+    [Ns, 3] f32, s_mask [Ns] bool → uint8 [ns_pad·32 + 16]. `knn3_mxu`
+    launches the same pack kernel itself; this wrapper holds it against
+    its plain version. The custom op `gridgcn::mxu_pack_support`."""
+    _device(s_xyz, s_mask)
+    return torch.ops.gridgcn.mxu_pack_support(s_xyz, s_mask)
 
 
 mxu_pack_support.launches = 0

@@ -3,12 +3,15 @@ package's dummy inputs."""
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 from torch import nn
 
 from gridgcn_torch.configs.base import Config, ModelConfig
 from gridgcn_torch.models.classifier import GridGCNClassifier
-from gridgcn_torch.models.layers import Dense
+from gridgcn_torch.models.layers import BatchNorm, Dense
 from gridgcn_torch.models.segmentation import GridGCNSegmentation
 from gridgcn_torch.utils import jaxrng
 
@@ -48,3 +51,35 @@ def init_model(cfg: ModelConfig, generator: torch.Generator):
         if isinstance(m, Dense):
             m.reset_parameters(generator)
     return model, model.state_dict()
+
+
+def numpy_state_dict(cfg: ModelConfig, seed: int) -> dict:
+    """Weights for cfg drawn with numpy's `default_rng(seed)`, the same on
+    any machine and any torch version (torch's generator is not): each
+    tensor of the model's state_dict in its order, Dense weights normal at
+    √(2 / fan_in), BatchNorm scales in [0.5, 1.5) and variances in
+    [0.5, 2), every bias and mean 0.1·normal. Non-trivial BatchNorms, so
+    folding is exercised. float32 tensors."""
+    model = build_model(cfg)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        mod, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(mod)
+        if isinstance(owner, Dense) and leaf == "weight":
+            v = rng.standard_normal(t.shape) * np.sqrt(2.0 / t.shape[1])
+        elif isinstance(owner, BatchNorm) and leaf == "weight":
+            v = rng.uniform(0.5, 1.5, t.shape)
+        elif isinstance(owner, BatchNorm) and leaf == "running_var":
+            v = rng.uniform(0.5, 2.0, t.shape)
+        else:
+            v = 0.1 * rng.standard_normal(t.shape)
+        out[name] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def state_dict_digests(state_dict: dict) -> dict:
+    """SHA-256 of each tensor's bytes (float32, C order), by name."""
+    return {k: hashlib.sha256(
+        np.ascontiguousarray(v.detach().cpu().numpy()).tobytes()).hexdigest()
+        for k, v in state_dict.items()}

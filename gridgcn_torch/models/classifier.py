@@ -47,11 +47,14 @@ class GridGCNClassifier(nn.Module):
 
     def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
                 mask: torch.Tensor, key: np.ndarray,
-                dropout_key: np.ndarray | None = None) -> torch.Tensor:
+                dropout_key: np.ndarray | None = None,
+                row0: int = 0) -> torch.Tensor:
         """xyz [B, N, 3] f32, feat [B, N, in_channels] or None, mask [B, N]
         bool, key and dropout_key: the jaxrng keys that the JAX package
         passes as rngs={"cagq": key, "dropout": dropout_key} (dropout_key
-        only in training with dropout) → logits [B, num_classes] f32."""
+        only in training with dropout) → logits [B, num_classes] f32.
+        row0: the clouds are rows [row0, row0 + B) of the batch whose keys
+        these are (a data-parallel rank's rows of the global batch)."""
         cfg = self.cfg
         if cfg.use_xyz_feature:
             feat = xyz if feat is None else torch.cat([xyz, feat], -1)
@@ -59,7 +62,8 @@ class GridGCNClassifier(nn.Module):
             # flax: self.make_rng("cagq") inside module gridconv{i}
             k = flax_make_rng(key, (f"gridconv{i}",), 1)
             xyz, feat, mask = run_stage(getattr(self, f"gridconv{i}"),
-                                        cfg.remat, xyz, feat, mask, k)
+                                        cfg.remat, xyz, feat, mask, k, None,
+                                        row0)
 
         # global masked max-pool (in the compute dtype); a cloud with no
         # valid center pools to 0
@@ -69,5 +73,5 @@ class GridGCNClassifier(nn.Module):
             flax_make_rng(dropout_key, (f"Dropout_{h}",), 1)
             for h in range(len(cfg.head))]
         x = run_mlp(self, "head", len(cfg.head), x, cfg.fold_bn, cfg.dropout,
-                    keys)
+                    keys, row0)
         return self.logits(x)

@@ -55,12 +55,14 @@ class GridConv(nn.Module):
                        bn_momentum=bn_momentum)
 
     def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
-                mask: torch.Tensor, key: np.ndarray, bounds=None
+                mask: torch.Tensor, key: np.ndarray, bounds=None,
+                row0: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One downsampling stage: xyz [B, N, 3] f32, feat [B, N, C] or
         None, mask [B, N] → (center_xyz [B, M, 3], center_feat [B, M, Co],
-        center_valid [B, M])."""
-        g = cagq(xyz, mask, self.spec, key, bounds=bounds).groups
+        center_valid [B, M]). The clouds are rows [row0, row0 + B) of the
+        batch whose key this is."""
+        g = cagq(xyz, mask, self.spec, key, bounds=bounds, row0=row0).groups
         # node positions are always the f32 gather of xyz (g.node_xyz); the
         # JAX package's bf16 bitcast-pair gather gives the same values
         node_xyz = g.node_xyz

@@ -13,8 +13,8 @@ names follow torch (`weight`, `bias`, `running_mean`, `running_var`);
 
 from __future__ import annotations
 
+import contextlib
 import math
-
 from typing import Sequence
 
 import numpy as np
@@ -60,6 +60,25 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over a process group's ranks, differentiable:
+    every rank's loss depends on every rank's input through the sum, so
+    the backward sums the incoming gradients over the group too."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from gridgcn_torch.parallel.mesh import all_reduce_
+
+        ctx.group = group
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from gridgcn_torch.parallel.mesh import all_reduce_
+
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
 class BatchNorm(nn.Module):
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.9):
@@ -73,15 +92,31 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
         self.momentum = momentum
         self.batch_stats = None
+        # a data-parallel step's process group: the batch statistics are
+        # then those of the global batch (`parallel.dp`)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
             # flax's fast variance: E[x²] − E[x]², clipped at 0, in f32;
-            # every row counts, masked (padded) rows included
+            # every row counts, masked (padded) rows included. Under a
+            # process group the sums are all-reduced with a differentiable
+            # all-reduce first, so the statistics are the global batch's,
+            # as in the JAX package's GSPMD step (every rank holds as many
+            # rows: the row count is this one's times the group's size).
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            s, ss = xf.sum(axes), (xf * xf).sum(axes)
+            n = float(math.prod(x.shape[:-1]))
+            if self.group is not None:
+                import torch.distributed as dist
+
+                c = len(s)
+                tot = _GroupSum.apply(torch.cat([s, ss]), self.group)
+                s, ss = tot[:c], tot[c:]
+                n *= dist.get_world_size(self.group)
+            mean = s / n
+            var = torch.clamp_min(ss / n - mean * mean, 0.0)
             self.batch_stats = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
@@ -114,12 +149,29 @@ def update_batch_stats(model: nn.Module) -> None:
             m.update_running_stats()
 
 
-def dropout(x: torch.Tensor, rate: float, key: np.ndarray) -> torch.Tensor:
+@contextlib.contextmanager
+def batch_stats_over(model: nn.Module, group):
+    """Inside the block, every BatchNorm of `model` in training mode takes
+    the statistics of the batch summed over `group` (a data-parallel
+    step's process group; None: this process's batch alone)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
+
+
+def dropout(x: torch.Tensor, rate: float, key: np.ndarray,
+            row0: int = 0) -> torch.Tensor:
     """flax's `nn.Dropout(rate)` in training mode under `key`: keep
     bernoulli(key, 1 − rate, x.shape) and return x / (1 − rate) there, 0
-    elsewhere, in x's dtype."""
+    elsewhere, in x's dtype. x's rows are rows [row0, row0 + B) of the
+    batch whose key this is."""
     keep_prob = 1.0 - rate
-    keep = jaxrng.bernoulli(key, keep_prob, x.shape, x.device)
+    keep = jaxrng.bernoulli(key, keep_prob, x.shape, x.device, row0=row0)
     scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, 0.0)
 
@@ -142,11 +194,12 @@ def add_mlp(owner: nn.Module, stem: str, in_features: int,
 
 def run_mlp(owner: nn.Module, stem: str, n: int, x: torch.Tensor,
             fold_bn: bool, dropout_rate: float = 0.0,
-            dropout_keys: Sequence[np.ndarray] | None = None
-            ) -> torch.Tensor:
+            dropout_keys: Sequence[np.ndarray] | None = None,
+            row0: int = 0) -> torch.Tensor:
     """Dense → BatchNorm (unless folded) → ReLU → dropout, n times, through
     the modules that `add_mlp` registered. Dropout runs in training mode
-    only, layer i under dropout_keys[i]."""
+    only, layer i under dropout_keys[i], x's rows being rows [row0, row0 +
+    B) of the batch."""
     for i in range(n):
         x = getattr(owner, f"{stem}_dense{i}")(x)
         if not fold_bn:
@@ -155,5 +208,5 @@ def run_mlp(owner: nn.Module, stem: str, n: int, x: torch.Tensor,
         if dropout_rate > 0 and owner.training:
             if dropout_keys is None:
                 raise ValueError("training with dropout needs dropout keys")
-            x = dropout(x, dropout_rate, dropout_keys[i])
+            x = dropout(x, dropout_rate, dropout_keys[i], row0)
     return x

@@ -76,11 +76,11 @@ class GridGCNSegmentation(nn.Module):
     # ---- pieces ----
 
     def encode_layer(self, i: int, xyz, feat, mask, key: np.ndarray,
-                     bounds=None):
+                     bounds=None, row0: int = 0):
         """GridConv stage i: one CAGQ + GCA downsampling step
         (rematerialized in training with cfg.remat)."""
         return run_stage(getattr(self, f"gridconv{i}"), self.cfg.remat,
-                         xyz, feat, mask, key, bounds)
+                         xyz, feat, mask, key, bounds, row0)
 
     def uses_grid(self, i: int, n_support: int) -> bool:
         """Whether decoder stage i queries through the voxel grid for a
@@ -90,7 +90,8 @@ class GridGCNSegmentation(nn.Module):
                                     and n_support > _DENSE_KNN_MAX_SUPPORT)
 
     def decode_stage(self, i: int, c_xyz, c_feat, c_mask,
-                     d_xyz, d_feat, d_mask, key: np.ndarray | None = None):
+                     d_xyz, d_feat, d_mask, key: np.ndarray | None = None,
+                     row0: int = 0):
         """Feature-propagation stage i: 3-NN interpolation from the coarse
         level (c_*) to the dense level (d_*), skip-concat, shared MLP. `key`
         is the grid query's voxel-build key (grid stages only)."""
@@ -104,7 +105,7 @@ class GridGCNSegmentation(nn.Module):
                                  "needs a key")
             nn_idx, weights, _ = grid_three_nn(
                 d_xyz, d_mask, c_xyz, c_mask, up.resolution, up.nv, key,
-                k=up.k_interp, context=up.context)
+                k=up.k_interp, context=up.context, row0=row0)
         else:
             nn_idx, weights, _ = dense_three_nn(
                 d_xyz, d_mask, c_xyz, c_mask, k=up.k_interp,
@@ -117,7 +118,8 @@ class GridGCNSegmentation(nn.Module):
         x = run_mlp(self, f"up{i}", len(up.mlp), x, self.cfg.fold_bn)
         return torch.where(d_mask[..., None], x, 0.0)
 
-    def head_logits(self, x, dropout_key: np.ndarray | None = None):
+    def head_logits(self, x, dropout_key: np.ndarray | None = None,
+                    row0: int = 0):
         """Per-point classification head (logits in float32). In training,
         head layer h drops out under flax's key for the h-th call of the
         network's one `Dropout` submodule, `_dropout`."""
@@ -125,17 +127,20 @@ class GridGCNSegmentation(nn.Module):
         keys = None if dropout_key is None else [
             flax_make_rng(dropout_key, ("_dropout",), h + 1) for h in range(n)]
         return self.logits(run_mlp(self, "head", n, x, self.cfg.fold_bn,
-                                   self.cfg.dropout, keys))
+                                   self.cfg.dropout, keys, row0))
 
     # ---- full network ----
 
     def forward(self, xyz: torch.Tensor, feat: Optional[torch.Tensor],
                 mask: torch.Tensor, key: np.ndarray,
-                dropout_key: np.ndarray | None = None) -> torch.Tensor:
+                dropout_key: np.ndarray | None = None,
+                row0: int = 0) -> torch.Tensor:
         """xyz [B, N, 3] f32, feat [B, N, in_channels] or None, mask [B, N]
         bool, key and dropout_key: the jaxrng keys that the JAX package
         passes as rngs={"cagq": key, "dropout": dropout_key} (dropout_key
-        only in training with dropout) → logits [B, N, num_classes] f32."""
+        only in training with dropout) → logits [B, N, num_classes] f32.
+        row0: the clouds are rows [row0, row0 + B) of the batch whose keys
+        these are (a data-parallel rank's rows of the global batch)."""
         cfg = self.cfg
         if cfg.use_xyz_feature:
             feat = xyz if feat is None else torch.cat([xyz, feat], -1)
@@ -144,7 +149,8 @@ class GridGCNSegmentation(nn.Module):
         for i in range(len(cfg.layers)):
             # flax: self.make_rng("cagq") inside module gridconv{i}
             k = flax_make_rng(key, (f"gridconv{i}",), 1)
-            xyz, feat, mask = self.encode_layer(i, xyz, feat, mask, k)
+            xyz, feat, mask = self.encode_layer(i, xyz, feat, mask, k,
+                                                row0=row0)
             levels.append((xyz, feat, mask))
 
         c_xyz, c_feat, c_mask = levels[-1]
@@ -158,6 +164,6 @@ class GridGCNSegmentation(nn.Module):
                 n_grid += 1
                 k = flax_make_rng(key, (), n_grid)
             c_feat = self.decode_stage(i, c_xyz, c_feat, c_mask,
-                                       d_xyz, d_feat, d_mask, k)
+                                       d_xyz, d_feat, d_mask, k, row0)
             c_xyz, c_mask = d_xyz, d_mask
-        return self.head_logits(c_feat, dropout_key)
+        return self.head_logits(c_feat, dropout_key, row0)

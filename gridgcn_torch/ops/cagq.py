@@ -26,13 +26,14 @@ class CAGQOutput:
 
 
 def cagq(xyz: torch.Tensor, mask: torch.Tensor, spec: GridLayerSpec,
-         key: np.ndarray, bounds=None) -> CAGQOutput:
+         key: np.ndarray, bounds=None, row0: int = 0) -> CAGQOutput:
     """Run one layer's CAGQ: xyz [B, N, 3], mask [B, N] → centers + groups.
 
     Index tensors equal the JAX package's bit for bit for the same key.
     'candidates' context pooling needs the raw [M, P·nv] candidates, so it
     takes the slot-table build and gather (with the raw coverage grid);
-    every other layer takes the packed-key path.
+    every other layer takes the packed-key path. The clouds are rows
+    [row0, row0 + B) of the batch whose key this is.
     """
     k_build, k_sample, k_gather = jaxrng.split(key, 3)
     need_candidates = (spec.use_context_pool
@@ -45,19 +46,20 @@ def cagq(xyz: torch.Tensor, mask: torch.Tensor, spec: GridLayerSpec,
                               bounds=bounds, key_pad=(r, spec.context),
                               sel_coords=use_packed and (
                                   spec.coord_match or spec.coord_payload),
-                              with_coverage=not use_packed)
+                              with_coverage=not use_packed, row0=row0)
     if spec.sampler == "rvs":
         center_vids, center_valid = sample_centers_rvs(
-            table, spec.n_centers, k_sample, approx=spec.approx_select)
+            table, spec.n_centers, k_sample, approx=spec.approx_select,
+            row0=row0)
     elif spec.sampler == "cas":
         center_vids, center_valid = sample_centers_cas(
             table, spec.n_centers, k_sample, context=spec.context,
-            cas_iters=spec.cas_iters, approx=spec.approx_select)
+            cas_iters=spec.cas_iters, approx=spec.approx_select, row0=row0)
     else:
         raise ValueError(f"unknown sampler: {spec.sampler}")
     groups = gather_nodes(
         table, xyz, center_vids, center_valid, spec.k_neighbors,
         spec.context, k_gather, center_mode=spec.center_mode,
         approx=use_packed, return_candidates=need_candidates,
-        approx_topk=spec.approx_topk)
+        approx_topk=spec.approx_topk, row0=row0)
     return CAGQOutput(table=table, groups=groups)

@@ -219,11 +219,12 @@ def gather_nodes(table: VoxelTable, xyz: torch.Tensor,
                  K: int, context: int, key: np.ndarray,
                  center_mode: str = "barycenter", approx: bool = False,
                  return_candidates: bool = False,
-                 approx_topk: bool = False) -> GroupedNodes:
+                 approx_topk: bool = False, row0: int = 0) -> GroupedNodes:
     """Batched F-04 gather; centers from F-02/F-03; xyz = level points
     [B, N, 3]. approx=True: the packed-key path (needs the key table);
     approx=False: the slot-table path (needs slots and coverage), whose
-    random scores come from `key` split per cloud. `approx_topk` is
+    random scores come from `key` split per cloud (the clouds are rows
+    [row0, row0 + B) of the batch whose key this is). `approx_topk` is
     accepted for config parity: the port always selects the exact top-K."""
     if approx:
         nidx, nmask, ncov, cidx, cvalid = _gather_packed(
@@ -232,7 +233,7 @@ def gather_nodes(table: VoxelTable, xyz: torch.Tensor,
     else:
         nidx, nmask, ncov, cidx, cvalid = _gather_slots(
             table, center_vids, center_valid, K, context,
-            jaxrng.split(key, center_vids.shape[0]))
+            jaxrng.split(key, center_vids.shape[0], start=row0))
     nxyz = _take_rows(xyz, nidx)                                  # [B,M,K,3]
     nxyz = torch.where(nmask[..., None], nxyz, 0.0)
     cxyz = center_positions(

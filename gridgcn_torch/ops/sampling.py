@@ -43,9 +43,10 @@ def _threshold_margin_ok(M: int) -> bool:
     return M - 3.0 * float(M) ** 0.5 >= 1.0
 
 
-def _split_each(keys: np.ndarray, num: int) -> np.ndarray:
-    """`split(key, num)` of each of [B, 2] keys → [num, B, 2]."""
-    return jaxrng.split(keys, num).transpose(1, 0, 2)
+def _split_each(keys, num: int):
+    """`split(key, num)` of each of [B, 2] keys (numpy or tensor) →
+    [num, B, 2]."""
+    return jaxrng.split(keys, num).swapaxes(0, 1)
 
 
 def _keep_probability(n_occ: torch.Tensor, M: int) -> torch.Tensor:
@@ -107,10 +108,11 @@ def _rvs_one_sorted(sorted_vid: torch.Tensor, V: int, M: int,
 
 
 def sample_centers_rvs(table: VoxelTable, M: int, key: np.ndarray,
-                       approx: bool = False):
-    """Returns (center_vids [B, M] int64, center_valid [B, M] bool)."""
+                       approx: bool = False, row0: int = 0):
+    """Returns (center_vids [B, M] int64, center_valid [B, M] bool). The
+    clouds are rows [row0, row0 + B) of the batch whose key this is."""
     B = table.occupancy.shape[0]
-    keys = jaxrng.split(key, B)
+    keys = jaxrng.split(key, B, start=row0)
     if approx and _threshold_margin_ok(M):
         return _rvs_one_sorted(table.sorted_vid, table.num_voxels, M, keys)
     # occupancy > 0 <=> coverage > 0; the exact path takes the Gumbel top-k
@@ -198,12 +200,13 @@ def _cas(occupied: torch.Tensor, M: int, keys: np.ndarray, resolution: int,
 
 def sample_centers_cas(table: VoxelTable, M: int, key: np.ndarray,
                        context: int = 3, cas_iters: int = 1,
-                       approx: bool = False):
+                       approx: bool = False, row0: int = 0):
     """Coverage-Aware Sampling → (center_vids [B, M], center_valid [B, M]).
-    cas_iters = 0 is RVS (CAS's initialization) and dispatches to it."""
+    cas_iters = 0 is RVS (CAS's initialization) and dispatches to it. The
+    clouds are rows [row0, row0 + B) of the batch whose key this is."""
     if cas_iters == 0:
-        return sample_centers_rvs(table, M, key, approx=approx)
+        return sample_centers_rvs(table, M, key, approx=approx, row0=row0)
     B = table.occupancy.shape[0]
-    return _cas(table.occupancy > 0, M, jaxrng.split(key, B),
+    return _cas(table.occupancy > 0, M, jaxrng.split(key, B, start=row0),
                 table.resolution, context, cas_iters, approx,
                 table.sorted_vid)

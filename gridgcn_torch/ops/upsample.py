@@ -120,7 +120,7 @@ def dense_three_nn(query_xyz: torch.Tensor, query_mask: torch.Tensor,
 def grid_three_nn(query_xyz: torch.Tensor, query_mask: torch.Tensor,
                   support_xyz: torch.Tensor, support_mask: torch.Tensor,
                   resolution: int, nv: int, key: np.ndarray, k: int = 3,
-                  context: int = 3, chunk: int = 8192):
+                  context: int = 3, chunk: int = 8192, row0: int = 0):
     """Grid-indexed k-NN from each query point into the support set, over
     the support's voxel table (built with `key`), `chunk` queries at a
     time.
@@ -131,7 +131,7 @@ def grid_three_nn(query_xyz: torch.Tensor, query_mask: torch.Tensor,
       found:   [B, Nq] bool — at least one support point in context
     """
     table = build_voxel_table(support_xyz, support_mask, resolution, nv, key,
-                              with_coords=True)
+                              with_coords=True, row0=row0)
     V = resolution ** 3
     B, Nq, _ = query_xyz.shape
     q_vid = voxel_ids(query_xyz, query_mask, table.origin[:, None],

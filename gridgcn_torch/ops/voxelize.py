@@ -145,7 +145,7 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
                       with_keys: bool = False, with_slots: bool = True,
                       bounds=None, key_pad: tuple[int, int] = (0, 0),
                       sel_coords: bool = False,
-                      with_coverage: bool = True) -> VoxelTable:
+                      with_coverage: bool = True, row0: int = 0) -> VoxelTable:
     """Build fixed-capacity voxel tables for a batch of point clouds.
 
     Args:
@@ -161,6 +161,8 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
       key_pad: (lo, hi) sentinel rows around the key table.
       with_coverage: build the raw coverage grid; without it seg_pos and
         occupancy come from one packed scatter.
+      row0: the clouds are rows [row0, row0 + B) of the batch whose key
+        this is (one data-parallel rank's rows).
     sel_coords (the combined selection table) is not ported.
     """
     if sel_coords:
@@ -170,7 +172,8 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
     B, N = xyz.shape[:2]
     V = resolution ** 3
     dev = xyz.device
-    rand = jaxrng.bits(key, (B, N), dev)   # random per-voxel retention order
+    # random per-voxel retention order
+    rand = jaxrng.bits(key, (B, N), dev, row0=row0)
 
     if bounds is None:
         origin, vsize = grid_bounds(xyz, mask, resolution)

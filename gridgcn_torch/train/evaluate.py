@@ -1,7 +1,7 @@
 """The evaluator CLI.
 
     python -m gridgcn_torch.train.evaluate --ckpt-dir CKPT \
-        [--device cuda|cpu] [--latency] [--votes K] \
+        [--device cuda|cpu] [--mesh N] [--latency] [--votes K] \
         [--whole-scene [--voxel-size S]] [--s3dis-rooms] \
         [--target modelnet40|s3dis|scannet] [--log FILE]
 
@@ -12,13 +12,19 @@ the whole-scene eval with CAGQ-key voting and ScanNet's per-voxel accuracy,
 or S3DIS room-level block merging. `--target` compares the protocol's
 metric with the reference's published number (`accuracy_targets.json`)
 and exits non-zero below it. It runs on the card unless `--device cpu` is
-given. The sharded flags (`--mesh`, `--resident`, `--resident-ml`,
-`--scene-batch`) are parsed and refused: those tiers are not ported yet.
+given. `--mesh N` runs over N ranks (N worker processes, or the ranks of a
+`torchrun` launch): the crop eval through the data-parallel eval step, the
+whole-scene eval through tier-1 spatial sharding (one slab per rank, with
+the vote-invariant halo and capacity of the JAX package); the room eval
+ignores it, as the JAX package's does. The resident tiers' flags
+(`--resident`, `--resident-ml`, `--scene-batch`) are parsed and refused:
+those tiers are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import sys
@@ -26,11 +32,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gridgcn_torch.configs.base import to_json
 from gridgcn_torch.data.pipeline import make_dataset, to_device
 from gridgcn_torch.data.s3dis import load_s3dis_rooms
 from gridgcn_torch.models.build import init_model
+from gridgcn_torch.parallel import mesh as pmesh
+from gridgcn_torch.parallel.launch import launch
+from gridgcn_torch.parallel.spatial import (
+    required_halo, sharded_scene_apply, suggest_capacity)
 from gridgcn_torch.train.metrics import (
     confusion_matrix, merge_block_logits, summarize_confusion,
     voxel_confusion)
@@ -39,10 +50,31 @@ from gridgcn_torch.train.steps import (
 from gridgcn_torch.utils import jaxrng
 from gridgcn_torch.utils.checkpoint import CheckpointManager
 from gridgcn_torch.utils.logging import MetricLogger
+from gridgcn_torch.utils.precision import full_fp32
 from gridgcn_torch.utils.profiling import steady_state_time
 
-UNPORTED = ("the spatially sharded and scene-batched tiers are not ported "
-            "yet (ROADMAP queue 1, items 18-19)")
+UNPORTED = ("the resident and scene-batched tiers are not ported yet "
+            "(ROADMAP queue 1, item 7: the resident tiers)")
+
+
+def _mesh_for(mesh_devices: int, device):
+    """(mesh or None, this rank's device, whether this rank logs)."""
+    if not mesh_devices:
+        return None, device, True
+    mesh = pmesh.make_mesh(mesh_devices,
+                           pmesh.mesh_devices(device, mesh_devices))
+    return mesh, mesh.device, mesh.rank == 0
+
+
+def _logger(lead: bool, log_path):
+    return (MetricLogger(log_path) if lead
+            else MetricLogger(stream=io.StringIO()))
+
+
+def _host(summary: dict) -> dict:
+    """A summary's tensors as numpy (a launched worker's result)."""
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in summary.items()}
 
 
 def _restore(ckpt_dir: str, cfg, device):
@@ -60,27 +92,39 @@ def _restore(ckpt_dir: str, cfg, device):
 
 
 def evaluate(ckpt_dir: str, latency: bool = False, votes: int = 1,
-             log_path=None, device="cuda"):
+             log_path=None, device="cuda", mesh_devices: int = 0):
     """Crop eval of the test split: OA, mean class accuracy and mIoU
     (rotation voting with votes > 1); `latency` also times one batch's
-    eval step (CUDA events on the card)."""
+    eval step (CUDA events on the card). mesh_devices=N: the data-parallel
+    eval step over N ranks (N launched workers outside a process group;
+    rank 0's summary is returned and only rank 0 logs)."""
+    if mesh_devices and not dist.is_initialized():
+        return launch(_evaluate_worker, pmesh.mesh_devices(device,
+                                                           mesh_devices),
+                      ckpt_dir, latency, votes, log_path, device,
+                      mesh_devices)
+    mesh, device, lead = _mesh_for(mesh_devices, device)
     cfg = CheckpointManager.load_config(ckpt_dir)
-    log = MetricLogger(log_path)
+    log = _logger(lead, log_path)
     log.log("config", name=cfg.name, config=to_json(cfg))
     state = _restore(ckpt_dir, cfg, device)
 
     val_ds = make_dataset(cfg.data, "test", cfg.model.num_classes,
                           cfg.model.task)
-    eval_step = (make_voting_eval_step(cfg, votes) if votes > 1
-                 else make_eval_step(cfg))
+    eval_step = (make_voting_eval_step(cfg, votes, mesh) if votes > 1
+                 else make_eval_step(cfg, mesh))
     rng = jaxrng.PRNGKey(0)
+
+    def put(batch):
+        return to_device(batch if mesh is None
+                         else pmesh.shard_batch(batch, mesh), state.device)
 
     C = cfg.model.num_classes
     cm = torch.zeros((C, C), dtype=torch.int32, device=state.device)
     t0 = time.time()
     for batch in val_ds.batches(cfg.data.eval_batch_size, seed=0,
                                 shuffle=False, drop_last=False):
-        cm = cm + eval_step(state, to_device(batch, state.device), rng)
+        cm = cm + eval_step(state, put(batch), rng)
     s = summarize_confusion(cm)
     log.log("eval", step=state.step, votes=votes,
             overall_acc=float(s["overall_acc"]),
@@ -90,9 +134,8 @@ def evaluate(ckpt_dir: str, latency: bool = False, votes: int = 1,
             wall_s=round(time.time() - t0, 3))
 
     if latency:
-        batch = to_device(next(val_ds.batches(cfg.data.eval_batch_size,
-                                              seed=0, shuffle=False)),
-                          state.device)
+        batch = put(next(val_ds.batches(cfg.data.eval_batch_size, seed=0,
+                                        shuffle=False)))
         dt = steady_state_time(eval_step, state, batch, rng, iters=20,
                                device=state.device)
         log.log("latency", batch_ms=round(dt * 1000, 3),
@@ -102,17 +145,29 @@ def evaluate(ckpt_dir: str, latency: bool = False, votes: int = 1,
     return s
 
 
+def _evaluate_worker(*args):
+    return _host(evaluate(*args))
+
+
 def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
-                          voxel_size: float = 0.05, device="cuda"):
+                          voxel_size: float = 0.05, device="cuda",
+                          mesh_devices: int = 0):
     """Whole-scene segmentation eval: every test scene at full size,
     `votes` times with CAGQ keys PRNGKey(1000·s + v), its per-point logits
     summed before the confusion matrix; the metrics count the points whose
     label is not the ignore label, and `voxel_acc` is ScanNet's per-voxel
-    accuracy on a `voxel_size` grid."""
+    accuracy on a `voxel_size` grid. mesh_devices=N shards each scene over
+    N ranks, tier 1 (`parallel.spatial.sharded_scene_apply`): one slab per
+    rank, the halo and capacity fixed per scene for every vote."""
+    if mesh_devices and not dist.is_initialized():
+        return launch(_whole_scene_worker,
+                      pmesh.mesh_devices(device, mesh_devices), ckpt_dir,
+                      votes, log_path, voxel_size, device, mesh_devices)
+    mesh, device, lead = _mesh_for(mesh_devices, device)
     cfg = CheckpointManager.load_config(ckpt_dir)
     if cfg.model.task != "seg":
         raise ValueError("whole-scene eval is a segmentation protocol")
-    log = MetricLogger(log_path)
+    log = _logger(lead, log_path)
     state = _restore(ckpt_dir, cfg, device)
     val_ds = make_dataset(cfg.data, "test", cfg.model.num_classes,
                           cfg.model.task)
@@ -129,14 +184,25 @@ def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
         # protocol scores the annotated ones
         metric_mask = (mask & (labels != cfg.model.ignore_label)
                        if cfg.model.ignore_label is not None else mask)
-        x = torch.as_tensor(xyz[None], device=dev)
-        f = (None if val_ds.features is None
-             else torch.as_tensor(val_ds.features[s][None], device=dev))
-        m = torch.as_tensor(mask[None], device=dev)
+        feat = None if val_ds.features is None else val_ds.features[s]
         acc = None
-        with torch.no_grad():
+        with torch.no_grad(), full_fp32():
+            if mesh is not None:      # vote-invariant partition geometry
+                halo = required_halo(cfg, float(np.ptp(xyz, axis=0).max()))
+                capacity = suggest_capacity(xyz, mask, mesh.size, halo)
             for v in range(votes):
-                lg = state.model(x, f, m, jaxrng.PRNGKey(1000 * s + v))
+                key = jaxrng.PRNGKey(1000 * s + v)
+                if mesh is not None:
+                    lg = torch.as_tensor(sharded_scene_apply(
+                        _slab_forward(state.model, key, feat is not None),
+                        xyz, mask, mesh, halo=halo, capacity=capacity,
+                        num_outputs=C, feat=feat), device=dev)[None]
+                else:
+                    lg = state.model(
+                        torch.as_tensor(xyz[None], device=dev),
+                        None if feat is None
+                        else torch.as_tensor(feat[None], device=dev),
+                        torch.as_tensor(mask[None], device=dev), key)
                 acc = lg if acc is None else acc + lg
         cm = cm + confusion_matrix(
             acc, torch.as_tensor(labels[None], device=dev), C,
@@ -155,6 +221,18 @@ def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
             voxel_acc=float(sv["overall_acc"]))
     log.close()
     return s_
+
+
+def _slab_forward(model, key, with_feat: bool):
+    """The tier-1 apply function: the eval model on a rank's slabs, rows
+    [row0, row0 + d) of the slab batch, under the vote's key."""
+    if with_feat:
+        return lambda x, f, m, row0: model(x, f, m, key, row0=row0)
+    return lambda x, m, row0: model(x, None, m, key, row0=row0)
+
+
+def _whole_scene_worker(*args):
+    return _host(evaluate_whole_scenes(*args))
 
 
 def evaluate_s3dis_rooms(ckpt_dir: str, votes: int = 1, log_path=None,
@@ -191,7 +269,7 @@ def evaluate_s3dis_rooms(ckpt_dir: str, votes: int = 1, log_path=None,
             f = torch.as_tensor(bf, device=dev)
             m = torch.ones((B, xyz.shape[1]), dtype=torch.bool, device=dev)
             acc = None
-            with torch.no_grad():
+            with torch.no_grad(), full_fp32():
                 for v in range(votes):
                     lg = state.model(x, f, m, jaxrng.PRNGKey(1000 * r + v))
                     acc = lg if acc is None else acc + lg
@@ -259,7 +337,9 @@ def main(argv=None):
                         "standard eval: up-axis rotation-voting rounds "
                         "(default 1)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="spatially shard each scene (not ported)")
+                   help="run over N devices of --device: the data-parallel "
+                        "eval step, or (--whole-scene) each scene "
+                        "spatially sharded, tier 1")
     p.add_argument("--resident", action="store_true",
                    help="fully-resident sharding (not ported)")
     p.add_argument("--resident-ml", action="store_true",
@@ -275,7 +355,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.votes is not None and args.votes < 1:
         p.error(f"--votes must be >= 1, got {args.votes}")
-    if args.mesh or args.resident or args.resident_ml or args.scene_batch:
+    if args.resident or args.resident_ml or args.scene_batch:
         p.error(UNPORTED)
     if args.s3dis_rooms:
         s = evaluate_s3dis_rooms(args.ckpt_dir,
@@ -286,11 +366,13 @@ def main(argv=None):
                                   votes=3 if args.votes is None else args.votes,
                                   log_path=args.log,
                                   voxel_size=args.voxel_size,
-                                  device=args.device)
+                                  device=args.device,
+                                  mesh_devices=args.mesh)
     else:
         s = evaluate(args.ckpt_dir, latency=args.latency,
                      votes=1 if args.votes is None else args.votes,
-                     log_path=args.log, device=args.device)
+                     log_path=args.log, device=args.device,
+                     mesh_devices=args.mesh)
     if args.target:
         check_target(args.target, s)
 

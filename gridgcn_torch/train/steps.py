@@ -13,6 +13,18 @@ key per step, `fold_in(rng, step)`, split into the augmentation, CAGQ and
 dropout streams, so the same key gives the JAX package's draws and indices.
 The optimizer is optax's Adam (or AdamW, after an optional global-norm
 clip) written op by op, not `torch.optim`, whose formulas round otherwise.
+
+Given a `parallel.mesh.Mesh`, the same steps run data-parallel
+(`parallel.dp`): each rank takes its rows of the global batch, and the
+step is the single-device step on the global batch, as the JAX package's
+GSPMD step is. Every draw is made at the global batch's counters (the
+rank's rows of them, `row0`), BatchNorm takes the global batch's
+statistics, the loss and accuracy divide by the global counts, and the
+gradients are summed over the ranks before the norm, the clip and Adam,
+so every rank holds the same parameters and optimizer state. With one
+rank the arithmetic is the single-device step's, bit for bit. Steps run
+with TF32 off (`utils.precision.full_fp32`), the caller's setting
+restored after.
 """
 
 from __future__ import annotations
@@ -30,9 +42,10 @@ from gridgcn_torch.configs.base import Config
 from gridgcn_torch.data.augment import augment_batch, rotation_y
 from gridgcn_torch.data.native import label_histogram
 from gridgcn_torch.data.pipeline import to_device
-from gridgcn_torch.models.layers import update_batch_stats
+from gridgcn_torch.models.layers import batch_stats_over, update_batch_stats
 from gridgcn_torch.train.metrics import confusion_matrix
 from gridgcn_torch.utils import jaxrng
+from gridgcn_torch.utils.precision import full_fp32
 
 _f32 = np.float32
 
@@ -189,26 +202,31 @@ class TrainState:
 def create_train_state(cfg: Config, model: nn.Module, state_dict,
                        steps_per_epoch: int, device="cuda") -> TrainState:
     """Load state_dict into model, move it to device and build the
-    optimizer. device "cuda" (the default) raises when CUDA is absent and
-    turns TF32 off; "cpu" runs the kernels' plain versions."""
+    optimizer. device "cuda" (the default) raises when CUDA is absent;
+    "cpu" runs the kernels' plain versions."""
     dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' "
-                               "to train on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "to train on the CPU")
     model.load_state_dict(state_dict)
     model.to(dev)
     tx = make_optimizer(cfg, model.parameters(), steps_per_epoch)
     return TrainState(model=model, tx=tx, device=dev)
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _loss_and_logits(cfg: Config, logits: torch.Tensor, batch: dict,
-                     class_weights: Optional[torch.Tensor] = None):
+                     class_weights: Optional[torch.Tensor] = None,
+                     total: Callable = _identity):
     """(loss, acc) of the JAX package: cls cross-entropy (label smoothing
     optional); seg per-point cross-entropy over the one-hot labels,
-    masked, without the ignore label, optionally weighted by class."""
+    masked, without the ignore label, optionally weighted by class.
+    `total` sums a count over the data-parallel ranks: the loss is then
+    this rank's share (its own sum over the global denominator, the
+    shares summing to the global loss) and acc the global accuracy."""
     labels = batch["label"]
     ls = cfg.train.label_smoothing
     C = cfg.model.num_classes
@@ -216,11 +234,13 @@ def _loss_and_logits(cfg: Config, logits: torch.Tensor, batch: dict,
     if cfg.model.task == "cls":
         if ls > 0:
             target = (1.0 - ls) * F.one_hot(labels, C).float() + ls / C
-            loss = -(target * F.log_softmax(logits, -1)).sum(-1).mean()
+            per = -(target * F.log_softmax(logits, -1)).sum(-1)
         else:
             picked = logits.gather(-1, labels[..., None])[..., 0]
-            loss = (torch.logsumexp(logits, -1) - picked).mean()
-        return loss, (pred == labels).float().mean()
+            per = torch.logsumexp(logits, -1) - picked
+        n = total(per.new_full((), float(per.shape[0])))
+        return (per.sum() / n,
+                total((pred == labels).float().sum()) / n)
     onehot = F.one_hot(labels, C).to(logits.dtype)
     target = (1.0 - ls) * onehot + ls / C if ls > 0 else onehot
     ce = -(target * F.log_softmax(logits, -1)).sum(-1)
@@ -230,9 +250,9 @@ def _loss_and_logits(cfg: Config, logits: torch.Tensor, batch: dict,
     w = mask.to(ce.dtype)
     if class_weights is not None:
         w = w * (onehot * class_weights.to(ce.dtype)).sum(-1)
-    loss = (ce * w).sum() / torch.clamp_min(w.sum(), 1e-6)
-    n = torch.clamp_min(mask.sum(), 1)
-    return loss, (mask & (pred == labels)).sum().float() / n.float()
+    loss = (ce * w).sum() / torch.clamp_min(total(w.sum().detach()), 1e-6)
+    n = torch.clamp_min(total(mask.sum()), 1)
+    return loss, total((mask & (pred == labels)).sum()).float() / n.float()
 
 
 def class_weights_from_dataset(labels, num_classes: int,
@@ -253,35 +273,54 @@ def class_weights_from_dataset(labels, num_classes: int,
     return torch.as_tensor(w, dtype=torch.float32)
 
 
-def make_train_step(cfg: Config, class_weights=None):
+def _rows(batch: dict, mesh) -> tuple[int, Callable]:
+    """(row0, total) of a step: the first global row of this rank's batch
+    rows and the sum over the ranks (row 0 and the identity without a
+    mesh). A mesh's ranks hold equal shares of the global batch."""
+    if mesh is None:
+        return 0, _identity
+    return mesh.rank * len(batch["xyz"]), mesh.sum
+
+
+def make_train_step(cfg: Config, class_weights=None, mesh=None):
     """(state, batch, rng) → (state, metrics): one training step on the
     state's device, the state updated in place. batch holds numpy arrays
     or tensors ("xyz", "mask", "label", optional "feat"); rng is a jaxrng
     key. metrics: "loss", "acc", "grad_norm" (before clipping) and "lr",
-    the optimizer's schedule at the step count after the update."""
+    the optimizer's schedule at the step count after the update. With a
+    `parallel.mesh.Mesh`, batch is this rank's rows of the global batch
+    (`parallel.mesh.shard_batch`) and the metrics are the global batch's
+    (see the module docstring)."""
 
     def step(state: TrainState, batch: dict, rng: np.ndarray):
         model, dev = state.model, state.device
         b = to_device(batch, dev)
+        row0, total = _rows(b, mesh)
         cw = None if class_weights is None else \
             torch.as_tensor(class_weights, device=dev)
         k_aug, k_cagq, k_drop = jaxrng.split(jaxrng.fold_in(rng, state.step),
                                              3)
-        xyz, mask, feat = augment_batch(b["xyz"], b["mask"], k_aug, cfg.data,
-                                        feat=b.get("feat"))
         model.train()
         params = state.tx.params
-        with torch.enable_grad():
-            logits = model(xyz, feat, mask, k_cagq, k_drop)
-            loss, acc = _loss_and_logits(cfg, logits, {**b, "mask": mask},
-                                         cw)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        with torch.no_grad():
-            update_batch_stats(model)
-            grad_norm = global_norm(grads)
-            state.tx.update(grads, grad_norm)
+        with full_fp32(), batch_stats_over(
+                model, None if mesh is None else mesh.group):
+            xyz, mask, feat = augment_batch(b["xyz"], b["mask"], k_aug,
+                                            cfg.data, feat=b.get("feat"),
+                                            row0=row0)
+            with torch.enable_grad():
+                logits = model(xyz, feat, mask, k_cagq, k_drop, row0=row0)
+                loss, acc = _loss_and_logits(
+                    cfg, logits, {**b, "mask": mask}, cw, total)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, params)]
+            with torch.no_grad():
+                if mesh is not None:
+                    grads = mesh.sum_all(grads)
+                    loss = mesh.sum(loss.detach())
+                update_batch_stats(model)
+                grad_norm = global_norm(grads)
+                state.tx.update(grads, grad_norm)
         return state, {"loss": loss.detach(), "acc": acc,
                        "grad_norm": grad_norm,
                        "lr": torch.tensor(state.tx.sched(state.step))}
@@ -302,32 +341,41 @@ def _confusion_mask(cfg: Config, batch: dict):
     return em
 
 
-def make_eval_step(cfg: Config):
+def make_eval_step(cfg: Config, mesh=None):
     """(state, batch, rng) → confusion matrix [C, C] int32, the model in
-    eval mode (running BatchNorm statistics, no dropout)."""
+    eval mode (running BatchNorm statistics, no dropout). With a mesh,
+    batch is this rank's rows and the matrix is summed over the ranks."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict, rng: np.ndarray):
         b = to_device(batch, state.device)
-        logits = state.model.eval()(b["xyz"], b.get("feat"), b["mask"], rng)
-        return confusion_matrix(logits, b["label"], cfg.model.num_classes,
-                                _confusion_mask(cfg, b))
+        row0, total = _rows(b, mesh)
+        with full_fp32():
+            logits = state.model.eval()(b["xyz"], b.get("feat"), b["mask"],
+                                        rng, row0=row0)
+        return total(confusion_matrix(logits, b["label"],
+                                      cfg.model.num_classes,
+                                      _confusion_mask(cfg, b)))
 
     return step
 
 
-def make_voting_eval_step(cfg: Config, votes: int):
+def make_voting_eval_step(cfg: Config, votes: int, mesh=None):
     """Rotation-voting eval: vote v rotates the cloud (and the feature
     columns cfg.data.feat_geo_channels) by 2πv/votes about the up axis and
     draws CAGQ keys from fold_in(rng, v); the votes' logits are summed
-    before the confusion matrix. votes=1 is the plain eval step."""
+    before the confusion matrix. votes=1 is the plain eval step. With a
+    mesh, batch is this rank's rows and the matrix is summed over the
+    ranks."""
     geo = list(cfg.data.feat_geo_channels)
     if geo and len(geo) != 3:
         raise ValueError("feat_geo_channels must name 3 columns")
 
     @torch.no_grad()
+    @full_fp32()
     def step(state: TrainState, batch: dict, rng: np.ndarray):
         b = to_device(batch, state.device)
+        row0, total = _rows(b, mesh)
         model = state.model.eval()
         acc = None
         for v in range(votes):
@@ -338,9 +386,9 @@ def make_voting_eval_step(cfg: Config, votes: int):
                 feat = feat.clone()
                 feat[..., geo] = feat[..., geo] @ rot
             logits = model(b["xyz"] @ rot, feat, b["mask"],
-                           jaxrng.fold_in(rng, v))
+                           jaxrng.fold_in(rng, v), row0=row0)
             acc = logits if acc is None else acc + logits
-        return confusion_matrix(acc, b["label"], cfg.model.num_classes,
-                                _confusion_mask(cfg, b))
+        return total(confusion_matrix(acc, b["label"], cfg.model.num_classes,
+                                      _confusion_mask(cfg, b)))
 
     return step

@@ -1,7 +1,8 @@
 """The trainer CLI.
 
     python -m gridgcn_torch.train.train --preset scannet_seg \
-        [--device cuda|cpu] [--auto-capacity off|propose|apply] \
+        [--device cuda|cpu] [--mesh N] \
+        [--auto-capacity off|propose|apply] \
         [--log FILE] [--tensorboard DIR] [key=value ...]
 
 One CLI for every task; the preset decides classification or
@@ -13,14 +14,18 @@ key drives every step, eval runs every `eval_every` epochs with key
 `PRNGKey(10000 + epoch)`, a checkpoint is written every `ckpt_every`
 epochs and after the last, and the metrics go out as JSONL records
 (config, capacity, restore, train_step, epoch, eval). It runs on the card
-unless `--device cpu` is given. The data-parallel and spatially sharded
-flags (`--mesh`, `--spatial`, ...) are parsed and refused: those tiers are
-not ported yet.
+unless `--device cpu` is given. `--mesh N` trains data-parallel over N
+ranks (`parallel.dp`; N worker processes on this host, or the processes of
+a `torchrun` launch): each rank takes its rows of the same global batch,
+the step is the single-device step on the global batch, and only rank 0
+logs and checkpoints. The spatially sharded flags (`--spatial`, ...) are
+parsed and refused: those tiers are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import dataclasses
 import sys
 import time
@@ -28,12 +33,15 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gridgcn_torch.configs import presets
 from gridgcn_torch.configs.base import (
     Config, apply_overrides, parse_cli_overrides, to_json)
 from gridgcn_torch.data.pipeline import Prefetcher, make_dataset, to_device
 from gridgcn_torch.models.build import init_model
+from gridgcn_torch.parallel.launch import launch
+from gridgcn_torch.parallel import mesh as pmesh
 from gridgcn_torch.train.metrics import summarize_confusion
 from gridgcn_torch.train.steps import (
     class_weights_from_dataset, create_train_state, make_eval_step,
@@ -44,8 +52,8 @@ from gridgcn_torch.utils.debug import (
     audit_layer0_capacity, propose_layer0_capacity)
 from gridgcn_torch.utils.logging import MetricLogger
 
-UNPORTED = ("the data-parallel and spatially sharded tiers are not ported "
-            "yet (ROADMAP queue 1, items 18-19)")
+UNPORTED = ("the spatially sharded training tiers are not ported yet "
+            "(ROADMAP queue 1, item 7: the resident tiers)")
 
 
 def _log_capacity(log: MetricLogger, cfg: Config, ds,
@@ -82,11 +90,27 @@ def _log_capacity(log: MetricLogger, cfg: Config, ds,
 
 def train(cfg: Config, log_path: str | None = None,
           tensorboard_dir: str | None = None, auto_capacity: str = "off",
-          device="cuda"):
+          device="cuda", mesh_devices: int = 0):
     """Train cfg on one device (CUDA unless device="cpu"; "cuda" raises
     without a card), resuming from the newest checkpoint in
-    cfg.train.ckpt_dir. Returns the final `steps.TrainState`."""
-    log = MetricLogger(log_path, tensorboard_dir=tensorboard_dir)
+    cfg.train.ckpt_dir. Returns the final `steps.TrainState`.
+
+    mesh_devices=N trains data-parallel over N ranks of `device`: outside
+    a process group it starts N workers that each run this function and
+    returns None when they are done; inside one (a worker, or `torchrun`)
+    it is this rank's part and returns this rank's state."""
+    if mesh_devices and not dist.is_initialized():
+        return launch(_train_worker, pmesh.mesh_devices(device, mesh_devices),
+                      cfg, log_path, tensorboard_dir, auto_capacity, device,
+                      mesh_devices)
+    mesh = (pmesh.make_mesh(mesh_devices,
+                            pmesh.mesh_devices(device, mesh_devices))
+            if mesh_devices else None)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        device = mesh.device
+    log = (MetricLogger(log_path, tensorboard_dir=tensorboard_dir) if lead
+           else MetricLogger(stream=io.StringIO()))
     log.log("config", name=cfg.name, config=to_json(cfg))
 
     train_ds = make_dataset(cfg.data, "train", cfg.model.num_classes,
@@ -107,10 +131,14 @@ def train(cfg: Config, log_path: str | None = None,
         class_weights = class_weights_from_dataset(
             train_ds.labels, cfg.model.num_classes,
             ignore_label=cfg.model.ignore_label)
-    train_step = make_train_step(cfg, class_weights=class_weights)
-    eval_step = make_eval_step(cfg)
+    train_step = make_train_step(cfg, class_weights=class_weights, mesh=mesh)
+    eval_step = make_eval_step(cfg, mesh=mesh)
 
+    if not lead:          # rank 0 writes the directory's config first
+        mesh.sum(torch.zeros(1, device=device))
     ckpt = CheckpointManager(cfg.train.ckpt_dir, cfg, keep=cfg.train.keep_ckpts)
+    if mesh is not None and lead:
+        mesh.sum(torch.zeros(1, device=device))
     rng = jaxrng.PRNGKey(cfg.train.seed)
     restored = ckpt.restore(state, rng)
     start_epoch = 0
@@ -120,7 +148,8 @@ def train(cfg: Config, log_path: str | None = None,
         log.log("restore", step=state.step, epoch=start_epoch)
 
     def put(batch):
-        return to_device(batch, state.device)
+        return to_device(batch if mesh is None else pmesh.shard_batch(batch, mesh),
+                         state.device)
 
     for epoch in range(start_epoch, cfg.train.epochs):
         t_ep = time.time()
@@ -160,12 +189,18 @@ def train(cfg: Config, log_path: str | None = None,
                     mean_class_acc=float(s["mean_class_acc"]),
                     miou=float(s["miou"]))
 
-        if (cfg.train.ckpt_every > 0 and (epoch + 1) % cfg.train.ckpt_every == 0) \
-                or epoch == cfg.train.epochs - 1:
+        if lead and ((cfg.train.ckpt_every > 0
+                      and (epoch + 1) % cfg.train.ckpt_every == 0)
+                     or epoch == cfg.train.epochs - 1):
             ckpt.save(state.step, state, rng)
     ckpt.wait()
     log.close()
     return state
+
+
+def _train_worker(*args):
+    """One rank of a launched `train`: the state stays in the worker."""
+    train(*args)
 
 
 def main(argv=None):
@@ -175,7 +210,8 @@ def main(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to train (cuda raises without a card)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="devices for a data-parallel mesh (not ported)")
+                   help="train data-parallel over N devices of --device "
+                        "(N worker processes, or the ranks of torchrun)")
     p.add_argument("--spatial", choices=["resident", "resident-ml"],
                    default=None,
                    help="spatially sharded training (not ported)")
@@ -197,15 +233,16 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*",
                    help="config overrides, e.g. train.lr=3e-4")
     args = p.parse_args(argv)
-    if (args.mesh or args.spatial or args.spatial_capacity
-            or args.ghost_cap != "0" or args.scene_batch):
+    if (args.spatial or args.spatial_capacity or args.ghost_cap != "0"
+            or args.scene_batch):
         p.error(UNPORTED)
 
     cfg = presets.get(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, parse_cli_overrides(args.overrides))
     train(cfg, log_path=args.log, tensorboard_dir=args.tensorboard,
-          auto_capacity=args.auto_capacity, device=args.device)
+          auto_capacity=args.auto_capacity, device=args.device,
+          mesh_devices=args.mesh)
 
 
 if __name__ == "__main__":

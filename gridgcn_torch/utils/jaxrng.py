@@ -7,13 +7,22 @@ mode, `jax_threefry_partitionable=True`), so the same key gives the same
 indices in both packages.
 
 A key is what JAX calls its raw key data: a numpy uint32 array of shape
-(2,). Key derivation (`PRNGKey`, `split`, `fold_in`, `flax_make_rng`) runs on
-the host in numpy; draws (`bits`, `uniform`, `normal`, `bernoulli`,
-`gumbel`, `permutation`) run on the tensor's device in torch int64
-arithmetic masked to 32 bits (uint32 ops are only partly supported on
-CUDA). A draw also takes a [B, 2] array of keys
-and makes the B draws in one pass, [B, *shape]: the hash is elementwise, so
-each row equals the draw under its own key.
+(2,), or the same two words in an int64 tensor. Key derivation (`PRNGKey`,
+`split`, `fold_in`, `flax_make_rng`) runs on the host in numpy for a numpy
+key and on the key's device in torch for a tensor key, so that a traced
+program (`torch.export`) takes its key as an input instead of freezing the
+tracing key into a constant; the two paths give the same words. Draws
+(`bits`, `uniform`, `normal`, `bernoulli`, `gumbel`, `permutation`) run on
+the tensor's device in torch int64 arithmetic masked to 32 bits (uint32 ops
+are only partly supported on CUDA). A draw also takes a [B, 2] array of
+keys and makes the B draws in one pass, [B, *shape]: the hash is
+elementwise, so each row equals the draw under its own key.
+
+Every draw is a hash of its flat row-major counter (the partitionable
+mode), so the rows [row0, row0 + B) of a draw at a larger batch are the
+hash of their own counters: `bits(..., row0=)` and `split(..., start=)`
+make one data-parallel rank's rows of the global batch's draws exactly,
+as the JAX package's GSPMD program draws them once for the whole batch.
 
 `gumbel`, `normal` and `uniform` need XLA:CPU's float32 log, erf⁻¹ and
 fused multiply-adds bit for bit: `utils.xla_math` repeats them.
@@ -52,13 +61,22 @@ def _threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def _np_hash(key, x0, x1):
-    """The hash of counters (x0, x1) under one key [2] or under each of
-    [B, 2] keys (→ a leading B axis), in numpy uint32."""
+def _key_hash(key, lo):
+    """The hash of counters (0, lo) under one key [2] or under each of
+    [B, 2] keys (→ a leading B axis), stacked into key pairs [..., n, 2]:
+    numpy uint32 for a numpy key, int64 on the key's device for a tensor
+    key. `lo` is a sequence of ints."""
+    if isinstance(key, torch.Tensor):
+        k = key.long()
+        x1 = torch.tensor(lo, dtype=torch.int64, device=k.device)
+        b0, b1 = _threefry2x32(k[..., 0:1], k[..., 1:2],
+                               torch.zeros_like(x1), x1)
+        return torch.stack([b0, b1], dim=-1)
     key = np.asarray(key, np.uint32)
-    x0 = np.asarray(x0, np.uint32)
-    x1 = np.asarray(x1, np.uint32)
-    return _threefry2x32(key[..., 0:1], key[..., 1:2], x0, x1)
+    x1 = np.asarray(lo, np.uint32)
+    b0, b1 = _threefry2x32(key[..., 0:1], key[..., 1:2],
+                           np.zeros_like(x1), x1)
+    return np.stack([b0, b1], axis=-1).astype(np.uint32)
 
 
 def PRNGKey(seed: int) -> np.ndarray:
@@ -66,25 +84,33 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([0, int(seed) & _M32], np.uint32)
 
 
-def split(key: np.ndarray, num: int = 2) -> np.ndarray:
-    """`jax.random.split(key, num)` → [num, 2] uint32 keys; [B, 2] keys →
-    [B, num, 2], each row the split of its key, in one pass."""
-    b0, b1 = _np_hash(key, np.zeros(num, np.uint32), np.arange(num))
-    return np.stack([b0, b1], axis=-1).astype(np.uint32)
+def key_tensor(key, device="cpu") -> torch.Tensor:
+    """A numpy key (or [B, 2] keys) as the int64 tensor the tensor path
+    takes, on `device`."""
+    return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
+                           device=device)
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+def split(key, num: int = 2, start: int = 0):
+    """`jax.random.split(key, start + num)[start:]` → [num, 2] keys; [B, 2]
+    keys → [B, num, 2], each row the split of its key, in one pass. The
+    split of a key is the hash of the counters 0, 1, ..., so `start`
+    selects the keys of rows [start, start + num) of a larger split."""
+    return _key_hash(key, range(start, start + num))
+
+
+def fold_in(key, data: int):
     """`jax.random.fold_in(key, data)` for a uint32 `data`."""
-    b0, b1 = _np_hash(key, np.zeros(1, np.uint32), np.array([int(data) & _M32]))
-    return np.array([b0[0], b1[0]], np.uint32)
+    return _key_hash(key, [int(data) & _M32])[..., 0, :]
 
 
-def flax_make_rng(key: np.ndarray, path: tuple, counter: int) -> np.ndarray:
+def flax_make_rng(key, path: tuple, counter: int):
     """The key that flax's `self.make_rng(name)` returns in the module at
     `path` (its names from the root, e.g. ("gridconv0",)) on its
     `counter`-th call, when `apply` was given `key` for that name: a
     `fold_in` of the first 4 bytes of SHA-1 over the names and the counter
-    (flax 0.12 `core/scope.py` `_fold_in_static` and `make_rng`)."""
+    (flax 0.12 `core/scope.py` `_fold_in_static` and `make_rng`). The
+    digest is static: a tensor key stays a tensor."""
     m = hashlib.sha1()
     for x in (*path, counter):
         if isinstance(x, str):
@@ -95,52 +121,63 @@ def flax_make_rng(key: np.ndarray, path: tuple, counter: int) -> np.ndarray:
 
 
 def _key_words(key, device):
-    """(k0, k1) of one key as ints, or of a [B, 2] key array as int64
-    tensors [B, 1] on `device`, and the batch prefix of the draw shape."""
-    key = np.asarray(key)
-    if key.ndim == 1:
-        return int(key[0]), int(key[1]), ()
-    k = torch.as_tensor(key.astype(np.int64), device=device)
-    return k[:, 0:1], k[:, 1:2], (key.shape[0],)
+    """(k0, k1) of one key as ints (a numpy key) or 0-d int64 tensors (a
+    tensor key), or of [B, 2] keys as int64 tensors [B, 1], on `device`;
+    and the batch prefix of the draw shape."""
+    if isinstance(key, torch.Tensor):
+        k = key.long().to(device)
+    else:
+        key = np.asarray(key)
+        if key.ndim == 1:
+            return int(key[0]), int(key[1]), ()
+        k = torch.as_tensor(key.astype(np.int64), device=device)
+    if k.dim() == 1:
+        return k[0], k[1], ()
+    return k[:, 0:1], k[:, 1:2], (k.shape[0],)
 
 
-def bits(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+def bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     """`jax.random.bits(key, shape)` (uint32) as an int64 tensor on
     `device`: the hash of the flat row-major index, halves XOR-ed. A [B, 2]
-    key array gives [B, *shape], row b drawn under key b."""
+    key array gives [B, *shape], row b drawn under key b. `row0`: the
+    draw is rows [row0, row0 + shape[0]) of the same draw at a larger
+    leading extent (one key only)."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if n >= 2 ** 32:
-        raise NotImplementedError("more than 2^32 draws per key")
     k0, k1, batch = _key_words(key, device)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    off = row0 * (n // shape[0]) if row0 else 0
+    if batch and off:
+        raise ValueError("row0 offsets a single key's draw")
+    if off + n > 2 ** 32:
+        raise NotImplementedError("more than 2^32 draws per key")
+    lo = torch.arange(off, off + n, dtype=torch.int64, device=device)
     if batch:
         lo = lo[None]
     b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return (b0 ^ b1).reshape(batch + shape)
 
 
-def _floats(key, shape, device) -> torch.Tensor:
+def _floats(key, shape, device, row0: int = 0) -> torch.Tensor:
     """The [0, 1) float32 of JAX's uniform: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1."""
-    b = bits(key, shape, device)
+    b = bits(key, shape, device, row0)
     return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: np.ndarray, shape, device="cpu", minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+def uniform(key, shape, device="cpu", minval: float = 0.0,
+            maxval: float = 1.0, row0: int = 0) -> torch.Tensor:
     """`jax.random.uniform(key, shape, minval=, maxval=)`, float32:
     max(minval, floats·(maxval − minval) + minval), the multiply-add fused
     as XLA:CPU fuses it."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    f = _floats(key, shape, device)
+    f = _floats(key, shape, device, row0)
     if lo == 0 and hi == 1:                 # f·1 + 0 = f, and f ≥ 0
         return f
     return torch.clamp_min(xla_math.fma32(f, float(hi - lo), float(lo)),
                            float(lo))
 
 
-def gumbel(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+def gumbel(key, shape, device="cpu") -> torch.Tensor:
     """`jax.random.gumbel(key, shape)` in JAX's default "low" mode,
     float32: −log(−log(u)) with u = uniform(minval=tiny, maxval=1)."""
     u = uniform(key, shape, device, minval=xla_math.TINY)
@@ -151,24 +188,25 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+def normal(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     """`jax.random.normal(key, shape)`, float32 (JAX's `_normal_real`):
     √2·erf⁻¹(u) with u = uniform(minval=nextafter(−1, 0), maxval=1)."""
-    u = uniform(key, shape, device, minval=_NORMAL_LO)
+    u = uniform(key, shape, device, minval=_NORMAL_LO, row0=row0)
     return _SQRT2 * xla_math.erf_inv(u)
 
 
-def bernoulli(key: np.ndarray, p: float, shape, device="cpu") -> torch.Tensor:
+def bernoulli(key, p: float, shape, device="cpu",
+              row0: int = 0) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)`: uniform(key, shape) < p, with
     p rounded to float32 as JAX rounds it."""
-    return uniform(key, shape, device) < float(np.float32(p))
+    return uniform(key, shape, device, row0=row0) < float(np.float32(p))
 
 
-def permutation(key: np.ndarray, n: int, device="cpu") -> torch.Tensor:
+def permutation(key, n: int, device="cpu") -> torch.Tensor:
     """`jax.random.permutation(key, n)` as int64 (JAX's `_shuffle`):
     ⌈3·ln n / ln(2³²−1)⌉ rounds, each a split, 32 random bits per element
     and a stable sort by them. A [B, 2] key array gives [B, n]."""
-    keys = np.asarray(key)
+    keys = key if isinstance(key, torch.Tensor) else np.asarray(key)
     batched = keys.ndim == 2
     keys = keys if batched else keys[None]
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(2 ** 32 - 1)))

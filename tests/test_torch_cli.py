@@ -301,24 +301,28 @@ def test_accuracy_targets_are_a_copy():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2"], ["--spatial", "resident", "--mesh", "2"],
+    ["--spatial", "resident", "--mesh", "2"],
     ["--scene-batch", "2"], ["--ghost-cap", "auto"],
     ["--spatial-capacity", "4096"]])
 def test_train_cli_refuses_unported_flags(argv, capsys):
+    """The resident tiers' flags (`--mesh` runs:
+    `tests/test_torch_cli_mesh.py`)."""
     with pytest.raises(SystemExit) as e:
         train.main(argv)
     assert e.value.code == 2
-    assert "items 18-19" in capsys.readouterr().err
+    assert "item 7" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2"], ["--resident"], ["--resident-ml"],
+    ["--resident"], ["--resident-ml"],
     ["--scene-batch", "2", "--whole-scene"]])
 def test_evaluate_cli_refuses_unported_flags(argv, capsys):
+    """The resident tiers' flags (`--mesh` runs:
+    `tests/test_torch_cli_mesh.py`)."""
     with pytest.raises(SystemExit) as e:
         evaluate.main(["--ckpt-dir", "checkpoints", *argv])
     assert e.value.code == 2
-    assert "items 18-19" in capsys.readouterr().err
+    assert "item 7" in capsys.readouterr().err
 
 
 def test_clis_default_to_cuda_and_raise_without_it(runs, tmp_path,

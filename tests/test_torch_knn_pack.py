@@ -81,23 +81,21 @@ def test_pack_wrapper_takes_the_plain_version_on_cpu():
 @pytest.mark.parametrize("scratch,nq", [(0, 0), (0, 5), (128 * 32 + 16, 7),
                                         (256 * 32 + 16, 1000)])
 def test_outputs_lay_out_as_the_kernels_write_them(scratch, nq):
-    """d2 f32 [nq, 3] and idx int32 [nq, 3] follow `scratch` bytes (kept
-    16-byte aligned, at the start) in one int32 tensor; valid bool [nq, 3]
-    is its own tensor. All are contiguous and do not overlap."""
-    buf, d, i, v = knn._outputs(scratch, nq, torch.zeros(2))
-    assert (buf.dtype, d.dtype, i.dtype, v.dtype) == (
-        torch.int32, torch.float32, torch.int32, torch.bool)
+    """d2 f32 [nq, 3], idx int32 [nq, 3] and valid bool [nq, 3] are each a
+    contiguous tensor of its own (a custom op's outputs may not share
+    storage); the mxu call's packed supports (`scratch` bytes: 32 per
+    padded column, then the center) are a fourth, 16-byte aligned."""
+    d, i, v = knn._outputs(nq, torch.zeros(2))
+    assert (d.dtype, i.dtype, v.dtype) == (
+        torch.float32, torch.int32, torch.bool)
     assert d.shape == i.shape == v.shape == (nq, 3)
     assert d.is_contiguous() and i.is_contiguous() and v.is_contiguous()
-    base = buf.data_ptr()
-    assert base % 16 == 0
-    if nq:
-        assert d.data_ptr() - base >= scratch
-        assert i.data_ptr() - d.data_ptr() == 12 * nq
-        assert i.data_ptr() + 12 * nq == base + 4 * buf.numel()
-    buf.fill_(0)
+    storages = {t.untyped_storage().data_ptr() for t in (d, i, v)}
+    assert len(storages) == 3 or nq == 0
+    if scratch:
+        assert knn._pack_bytes((scratch - 16) // 32) == scratch
+        assert scratch % 16 == 0
     d.fill_(1.5)
     i.fill_(-2)
     v.fill_(True)
     assert (d == 1.5).all() and (i == -2).all() and v.all()
-    assert (buf.view(-1)[:scratch // 4] == 0).all()

@@ -106,20 +106,36 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_entry_points_raise():
-    """What stays unported raises: mesh serving and the scene-batched mesh
-    tier."""
+    """What stays unported raises: the resident tiers (`predict_scenes`,
+    `predict_scene` on a mesh). Mesh serving runs inside a process group
+    (`tests/test_torch_dp.py`); outside one it says how to start one."""
     from gridgcn_torch import api
     from gridgcn_torch.models.build import init_model
+    from gridgcn_torch.parallel.mesh import Mesh
 
-    with pytest.raises(NotImplementedError):
-        api.load_predictor("checkpoints", mesh=2)
     cfg = tpresets.get("synthetic_tiny_seg")
     _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="parallel.launch or torchrun"):
         api.Predictor(cfg, sd, device="cpu", mesh=2)
     pred = api.Predictor(cfg, sd, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="resident"):
         pred.predict_scenes(np.zeros((2, 256, 3), np.float32))
+    with pytest.raises(ValueError, match="spatial tier"):
+        pred.predict_scene(np.zeros((256, 3), np.float32), spatial="ring")
+    one = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"))
+    meshed = api.Predictor(cfg, sd, device="cpu", mesh=one)
+    with pytest.raises(NotImplementedError, match="resident"):
+        meshed.predict_scene(np.zeros((256, 3), np.float32))
+
+
+def test_parallel_export_and_fps_modules_are_in_the_standalone_check():
+    """The data-parallel, export and baseline modules are among those the
+    standalone check imports without JAX."""
+    for m in ("gridgcn_torch.parallel.mesh", "gridgcn_torch.parallel.dp",
+              "gridgcn_torch.parallel.launch",
+              "gridgcn_torch.parallel.spatial", "gridgcn_torch.export",
+              "gridgcn_torch.ops.fps", "gridgcn_torch.utils.precision"):
+        assert m in MODULES, m
 
 
 def test_configs_are_a_copy_of_the_jax_presets():
