@@ -20,10 +20,13 @@ Mesh serving (`mesh=`, data parallelism): every rank of a
 `parallel.mesh` group calls with the same batch; the batch is padded to a
 multiple of the mesh size as the JAX package pads it, each rank runs its
 rows (the per-cloud keys those of the padded batch, as JAX's), and every
-rank gets the whole batch's logits. The resident tiers
-(`predict_scene(spatial=)` on a mesh, `predict_scenes`) are not ported
-yet. Each call runs with TF32 off (`utils.precision.full_fp32`), the
-caller's setting restored after.
+rank gets the whole batch's logits. On a mesh, `predict_scene` shards one
+scene over the ranks with a resident tier (`spatial=`: "resident",
+"resident_ml", or "auto", tier 3 when every layer's center count divides
+the mesh size), and `predict_scenes` serves B scenes at once on a 2-D
+(scene × slab) mesh of the same ranks, built at first use. Each call runs
+with TF32 off (`utils.precision.full_fp32`), the caller's setting restored
+after.
 """
 
 from __future__ import annotations
@@ -37,10 +40,6 @@ from gridgcn_torch.models.build import build_model
 from gridgcn_torch.models.fold import fold_inference
 from gridgcn_torch.utils import jaxrng
 from gridgcn_torch.utils.precision import full_fp32
-
-RESIDENT = ("the resident spatial tiers (predict_scene on a mesh, "
-            "predict_scenes) are not ported yet (ROADMAP queue 1, item 7)")
-
 
 class Predictor:
     def __init__(self, cfg, state_dict, device="cuda", mesh=None):
@@ -66,6 +65,7 @@ class Predictor:
         model = build_model(self.cfg.model)
         model.load_state_dict(folded)
         self._model = model.to(self.device).eval()
+        self._scene_fwds = {}       # per spatial tier, built at first use
 
     @torch.no_grad()
     @full_fp32()
@@ -111,11 +111,15 @@ class Predictor:
     def predict_scene(self, xyz, feat=None, *, votes: int = 1,
                       spatial: str = "auto",
                       rng: Optional[np.ndarray] = None) -> np.ndarray:
-        """Whole-scene per-point logits for ONE scene [N, 3] on this
-        device: `votes` CAGQ keys `fold_in(rng, v)` are logit-averaged (the
-        reference's whole-scene voting protocol). On a mesh the JAX
-        package shards the scene over it with a resident tier (`spatial`),
-        which is not ported yet and raises."""
+        """Whole-scene per-point logits [N, C] for ONE scene [N, 3]:
+        `votes` CAGQ keys `fold_in(rng, v)` are logit-averaged (the
+        reference's whole-scene voting protocol). Without a mesh the scene
+        runs on this device; on a mesh it is sharded over the ranks by a
+        resident tier, `spatial` "resident" (tier 2), "resident_ml" (tier
+        3) or "auto" (tier 3 when every layer's n_centers divides the
+        mesh size, else tier 2), and every rank gets the logits. `feat`
+        [N, in_channels] is required when the config has input channels
+        and rides the partition."""
         if self.cfg.model.task != "seg":
             raise ValueError("predict_scene is for segmentation models")
         if votes < 1:
@@ -124,8 +128,6 @@ class Predictor:
         if spatial not in ("auto", "resident", "resident_ml"):
             raise ValueError(f"unknown spatial tier {spatial!r}; expected "
                              "'auto', 'resident', or 'resident_ml'")
-        if self.mesh is not None:
-            raise NotImplementedError(RESIDENT)
         xyz = np.asarray(xyz, np.float32)
         C_in = self.cfg.model.in_channels
         if C_in and feat is None:
@@ -137,15 +139,94 @@ class Predictor:
                 raise ValueError(f"feat shape {feat.shape} != expected "
                                  f"{(xyz.shape[0], C_in)}")
         rng = jaxrng.PRNGKey(0) if rng is None else rng
-        acc = None
-        for v in range(votes):
-            lg = self(xyz, feat, rng=jaxrng.fold_in(rng, v))
-            acc = lg if acc is None else acc + lg
-        return acc / votes
+        if self.mesh is None:
+            acc = None
+            for v in range(votes):
+                lg = self(xyz, feat, rng=jaxrng.fold_in(rng, v))
+                acc = lg if acc is None else acc + lg
+            return acc / votes
+
+        from gridgcn_torch.parallel import resident, resident_ml
+
+        if spatial == "auto":
+            divides = all(layer.n_centers % self.mesh.size == 0
+                          for layer in self.cfg.model.layers)
+            spatial = "resident_ml" if divides else "resident"
+        if spatial not in self._scene_fwds:
+            make = (resident_ml.make_resident_ml_forward
+                    if spatial == "resident_ml"
+                    else resident.make_resident_forward)
+            self._scene_fwds[spatial] = make(self.cfg, self.mesh)
+        predict = (resident_ml.resident_ml_seg_predict
+                   if spatial == "resident_ml"
+                   else resident.resident_seg_predict)
+        return predict(self.cfg, self._model, xyz, np.ones(len(xyz), bool),
+                       self.mesh, rng=rng, fwd=self._scene_fwds[spatial],
+                       votes=votes, feat=feat)
 
     def predict_scenes(self, scenes_xyz, feats=None, *, votes: int = 1,
-                       rng=None):
-        raise NotImplementedError(RESIDENT)
+                       rng: Optional[np.ndarray] = None) -> np.ndarray:
+        """Whole-scene logits [B, N, C] for B scenes at once, on a mesh
+        Predictor whose size B divides: the scenes ride the data axis of a
+        2-D mesh of the same ranks (built at first use for each B), each
+        scene's slabs a ring of mesh size / B ranks (tier 3). Each scene's
+        logits are the 1-D tier-3 path's under key row b of split(rng, B)
+        (fold_in(rng, v) per vote first when votes > 1); every rank gets
+        them. `feats` [B, N, in_channels] when the config has input
+        channels."""
+        if self.cfg.model.task != "seg":
+            raise ValueError("predict_scenes is for segmentation models")
+        if self.mesh is None:
+            raise ValueError("predict_scenes needs a mesh Predictor "
+                             "(Predictor(..., mesh=N))")
+        if votes < 1:
+            raise ValueError(f"votes must be >= 1, got {votes}")
+        scenes_xyz = np.asarray(scenes_xyz, np.float32)
+        if scenes_xyz.ndim != 3 or scenes_xyz.shape[-1] != 3:
+            raise ValueError(f"scenes_xyz must be [B, N, 3], got "
+                             f"{scenes_xyz.shape}")
+        B, D = scenes_xyz.shape[0], self.mesh.size
+        if B < 1 or D % B:
+            raise ValueError(f"scene count {B} must divide the mesh size "
+                             f"{D}")
+        Ds = D // B
+        if any(layer.n_centers % Ds for layer in self.cfg.model.layers):
+            raise ValueError(
+                f"tier-3 scene batching needs every layer's n_centers "
+                f"divisible by {Ds} spatial shards "
+                f"({[layer.n_centers for layer in self.cfg.model.layers]})")
+        C_in = self.cfg.model.in_channels
+        if C_in:
+            if feats is None:
+                raise ValueError(f"this config has in_channels={C_in}: "
+                                 f"predict_scenes needs feats [B, N, {C_in}]")
+            feats = np.asarray(feats, np.float32)
+            if feats.shape != scenes_xyz.shape[:2] + (C_in,):
+                raise ValueError(f"feats shape {feats.shape} != expected "
+                                 f"{scenes_xyz.shape[:2] + (C_in,)}")
+
+        from gridgcn_torch.parallel.mesh import (
+            DATA_AXIS, SPACE_AXIS, make_mesh2d)
+        from gridgcn_torch.parallel.resident_ml import (
+            make_resident_ml_forward, resident_ml_seg_predict_scenes)
+
+        key = ("scenes", B)
+        if key not in self._scene_fwds:
+            mesh2d = make_mesh2d(B, Ds, [self.device] * D)
+            self._scene_fwds[key] = (mesh2d, make_resident_ml_forward(
+                self.cfg, mesh2d, axis_name=SPACE_AXIS,
+                batch_axis=DATA_AXIS))
+        mesh2d, fwd = self._scene_fwds[key]
+        masks = np.ones(scenes_xyz.shape[:2], bool)
+        rng = jaxrng.PRNGKey(0) if rng is None else rng
+        acc = None
+        for v in range(votes):
+            k = jaxrng.fold_in(rng, v) if votes > 1 else rng
+            lg = resident_ml_seg_predict_scenes(
+                self.cfg, self._model, scenes_xyz, masks, mesh2d,
+                feats=feats, rng=k, fwd=fwd)
+            acc = lg if acc is None else acc + lg
+        return acc / votes
 
 
 def load_predictor(ckpt_dir: str, step: Optional[int] = None,

@@ -1,15 +1,20 @@
 // Hopper kernels for the decoder's 3-NN query ("flash-kNN").
 //
-// Built by gridgcn_torch/kernels/knn.py at first CUDA use:
+// Built by gridgcn_torch/kernels/knn.py once for each list length k
+// (1..16) at the first CUDA call that asks for it:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -Xptxas -v -o libknn-<hash>.so knn.cu
+//        -Xcompiler -fPIC -Xptxas -v -DKNN_K=k -o libknn_k<k>-<hash>.so knn.cu
 // Plain C interface, loaded with ctypes. Each launch function enqueues its
 // kernels on the caller's stream, does not synchronise, allocates nothing
 // (the wrapper allocates outputs and scratch), and returns
 // cudaGetLastError() so that a refused launch is reported.
 //
 // Both kernels keep the [Nq, Ns] distance matrix out of device memory, as
-// the TPU kernels did, and keep a running top-3 per query in registers.
+// the TPU kernels did, and keep a running top-k per query in registers.
+// They are templates on the list length K; a build instantiates them for
+// K = KNN_K (1 <= KNN_K <= kMaxK = 16), one library per length, so that
+// the 16 builds run side by side. The decoder's k = 3 is the main path,
+// and its instantiation is the design described below.
 // At the main path's largest call (Nq 81920 x Ns 8192, 6.7e8 pairs) the
 // inputs and outputs are ~5 MB (~1.5 us at 3.35 TB/s), so both kernels are
 // bound by operations, not by memory:
@@ -66,6 +71,11 @@ constexpr float kBig = 1e30f;        // distance of a masked support
 constexpr float kValidMax = 5e29f;   // d2 below this is a real neighbor
 constexpr int kKeyMax = 0x7FFFFFFF;
 constexpr int kMasked = static_cast<int>(0x80000000u);  // staged column flag
+constexpr int kMaxK = 16;            // the longest list instantiated
+#ifndef KNN_K
+#define KNN_K 3
+#endif
+static_assert(KNN_K >= 1 && KNN_K <= kMaxK, "KNN_K must be in 1..16");
 
 // a * b mod n for 0 <= a < n + 256 and 0 <= b < n: a 32-bit remainder
 // where the product fits (a 64-bit one is a slow library routine)
@@ -110,26 +120,29 @@ __device__ __forceinline__ int pack_key(int bits, int hi, int col) {
   return k;
 }
 
-// Running top-3 of unique int32 keys k0 < k1 < k2, equal to three min
+// Running top-K of unique int32 keys k[0] < ... < k[K-1], equal to K min
 // passes that each exclude the earlier winners: a min/max network, no
 // branch.
-__device__ __forceinline__ void insert3(int key, int& k0, int& k1, int& k2) {
-  const int u0 = max(k0, key);
-  k0 = min(k0, key);
-  const int u1 = max(k1, u0);
-  k1 = min(k1, u0);
-  k2 = min(k2, u1);
+template <int K>
+__device__ __forceinline__ void insert_key(int key, int (&k)[K]) {
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    const int u = max(k[j], key);
+    k[j] = min(k[j], key);
+    key = u;
+  }
+  k[K - 1] = min(k[K - 1], key);
 }
 
 // knn3_exact -- replaces the JAX package's ops/pallas/knn.py _knn_kernel
-// (via flash_knn): exact k=3 NN, bit for bit.
+// (via flash_knn): exact K-NN, bit for bit.
 //   d2  = (dx*dx + dy*dy) + dz*dz in fp32, each operation rounded on its
 //         own (__f*_rn: no FMA contraction), 1e30 for masked supports and
 //         for the padded columns Ns <= col < ns_pad;
 //   key = (bits(d2) & ~low) | col, low = 2^idx_bits - 1;
-//   the 3 smallest keys give idx = key & low and the truncated
+//   the K smallest keys give idx = key & low and the truncated
 //   d2 = bits(key & ~low), as the TPU kernel returns them.
-// With fewer than 3 valid supports the invalid slots hold the lowest
+// With fewer than K valid supports the invalid slots hold the lowest
 // masked or padded columns (possibly >= Ns), as in the reference.
 //
 // Staged tile slot t of the tile at c0 holds column c = (c0 + t) * step
@@ -137,12 +150,12 @@ __device__ __forceinline__ void insert3(int key, int& k0, int& k1, int& k2) {
 // is masked or padded. G consecutive lanes share kQ = 4 queries of the
 // block (so one shared-memory load feeds 4 chains); lane l of the group
 // visits slots l, l+G, ... . A pair's d2 first meets a float test that
-// passes every key at or below the group's third-best key once the low
+// passes every key at or below the group's K-th best key once the low
 // idx_bits are cut (and NaN): only then are the mask, the key and the
 // insert computed. The group agrees on that key every kShare visits. Keys
-// are unique, so the visit order does not matter and the group's top-3 is
-// three shuffle-min passes over the lanes' top-3s.
-template <int G>
+// are unique, so the visit order does not matter and the group's top-K is
+// K shuffle-min passes over the lanes' top-Ks.
+template <int K, int G>
 __global__ void __launch_bounds__(kExactThreads)
 knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
                   const float* __restrict__ s, const uint8_t* __restrict__ s_mask,
@@ -158,15 +171,14 @@ knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mas
   // the largest f32 whose key, cut to ~low, is at most k's (NaN for kKeyMax)
   auto bound = [low](int k) { return __int_as_float(k | low); };
   float p[kQ][3];
-  int key[kQ][3];
+  int key[kQ][K];
   float tf[kQ];
 #pragma unroll
   for (int h = 0; h < kQ; ++h) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      p[h][a] = q0 + h < nq ? q[3 * (q0 + h) + a] : 0.f;
-      key[h][a] = kKeyMax;
-    }
+    for (int a = 0; a < 3; ++a) p[h][a] = q0 + h < nq ? q[3 * (q0 + h) + a] : 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) key[h][j] = kKeyMax;
     tf[h] = bound(kKeyMax);
   }
   const int stage_step = mul_mod(kExactThreads % ns_pad, step, ns_pad);
@@ -209,15 +221,14 @@ knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mas
 #pragma unroll
         for (int h = 0; h < kQ; ++h) {
           const float dm = w >= 0 ? d[h] : kBig;
-          insert3(pack_key(__float_as_int(dm), ~low, col), key[h][0],
-                  key[h][1], key[h][2]);
+          insert_key<K>(pack_key(__float_as_int(dm), ~low, col), key[h]);
         }
       }
       if (i % kShare == kShare - 1) {
-        // the group's lowest third-best key bounds what can still enter
+        // the group's lowest K-th best key bounds what can still enter
 #pragma unroll
         for (int h = 0; h < kQ; ++h) {
-          int k = key[h][2];
+          int k = key[h][K - 1];
 #pragma unroll
           for (int off = G / 2; off > 0; off >>= 1) {
             k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, off));
@@ -229,9 +240,9 @@ knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mas
   }
   // merge the group's G lists: each pass takes the smallest head and the
   // lane that holds it moves on to its next key
-  int top[kQ][3];
+  int top[kQ][K];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
+  for (int j = 0; j < K; ++j) {
 #pragma unroll
     for (int h = 0; h < kQ; ++h) {
       int m = key[h][0];
@@ -240,9 +251,9 @@ knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mas
         m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
       }
       if (key[h][0] == m) {
-        key[h][0] = key[h][1];
-        key[h][1] = key[h][2];
-        key[h][2] = kKeyMax;
+#pragma unroll
+        for (int i = 0; i < K - 1; ++i) key[h][i] = key[h][i + 1];
+        key[h][K - 1] = kKeyMax;
       }
       top[h][j] = m;
     }
@@ -254,11 +265,11 @@ knn3_exact_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mas
     if (qi >= nq) continue;
     const bool qv = q_mask[qi] != 0;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+    for (int j = 0; j < K; ++j) {
       const float d = __int_as_float(top[h][j] & ~low);
-      out_d[3 * qi + j] = d;
-      out_i[3 * qi + j] = top[h][j] & low;
-      out_v[3 * qi + j] = (qv && d < kValidMax) ? 1 : 0;
+      out_d[K * qi + j] = d;
+      out_i[K * qi + j] = top[h][j] & low;
+      out_v[K * qi + j] = (qv && d < kValidMax) ? 1 : 0;
     }
   }
 }
@@ -383,27 +394,34 @@ __device__ __forceinline__ bool before(float d, int i, float e, int j) {
   return d < e || (d == e && i < j);
 }
 
-// Top-3 merge of lists from disjoint column sets, lexicographic.
-__device__ __forceinline__ void merge3(float d, int i, float (&v)[3],
-                                       int (&id)[3]) {
-  if (before(d, i, v[2], id[2])) {
-    if (before(d, i, v[1], id[1])) {
-      v[2] = v[1];
-      id[2] = id[1];
-      if (before(d, i, v[0], id[0])) {
-        v[1] = v[0];
-        id[1] = id[0];
-        v[0] = d;
-        id[0] = i;
-      } else {
-        v[1] = d;
-        id[1] = i;
-      }
+// (d, i) into slot J or above of a top-K list it precedes at slot J: the
+// entry at J - 1 moves down when (d, i) precedes it too. Nested branches,
+// the shape the k = 3 kernel was tuned with: a loop with early exits
+// compiled to a markedly slower knn3_mxu at k = 3.
+template <int J, int K>
+__device__ __forceinline__ void merge_from(float d, int i, float (&v)[K],
+                                           int (&id)[K]) {
+  if constexpr (J == 0) {
+    v[0] = d;
+    id[0] = i;
+  } else {
+    if (before(d, i, v[J - 1], id[J - 1])) {
+      v[J] = v[J - 1];
+      id[J] = id[J - 1];
+      merge_from<J - 1, K>(d, i, v, id);
     } else {
-      v[2] = d;
-      id[2] = i;
+      v[J] = d;
+      id[J] = i;
     }
   }
+}
+
+// Top-K merge of lists from disjoint column sets, lexicographic: (d, i)
+// enters where it precedes, the later entries move down one.
+template <int K>
+__device__ __forceinline__ void merge_k(float d, int i, float (&v)[K],
+                                        int (&id)[K]) {
+  if (before(d, i, v[K - 1], id[K - 1])) merge_from<K - 1, K>(d, i, v, id);
 }
 
 // The query row of the K=16 product, as kernels/knn.py mxu_pack packs it
@@ -455,7 +473,7 @@ __device__ __forceinline__ void cp_async_wait1() {
 }
 
 // knn3_mxu -- replaces the JAX package's ops/pallas/knn.py _knn_kernel_mxu
-// (via flash_knn_mxu): near-exact k=3 NN from the split-bf16 expanded form.
+// (via flash_knn_mxu): near-exact K-NN from the split-bf16 expanded form.
 // Queries and supports are moved by the same offset, the support center c
 // (mxu_pack_kernel): distances do not change, and the split error, which
 // grows with |x|^2, then depends on the scene's extent and not on its
@@ -467,16 +485,18 @@ __device__ __forceinline__ void cp_async_wait1() {
 // lane loads its B fragment (8 B), runs two mma.sync (d2 + 1 of 2 x 16
 // queries x 8 supports in f32) and holds 2 columns of 4 query rows; it
 // inserts them only where the smaller passes the row's threshold, the
-// lowest third-best value of the quad's four lanes (refreshed every
-// kRefresh tiles). The top-3 is exact with ties to the lower column: every
+// lowest K-th best value of the quad's four lanes (refreshed every
+// kRefresh tiles). The top-K is exact with ties to the lower column: every
 // insert and merge -- within the quad by shuffles, across the SPLIT warps
 // through shared memory -- orders (value, column) pairs, as three
 // first-occurrence argmin passes do. The TPU kernel's lane-fold collisions
 // (a j-th neighbor lost to a nearer one in the same lane) do not happen
 // here. Outputs: d2 = max(d2+1 - 1, 0), idx = min(col, Ns-1), valid =
 // d2 < 5e29 and the query is valid.
-template <int SPLIT>
-__global__ void __launch_bounds__(kMxuThreads, 4)
+// Registers hold 4 rows' lists of K (value, column) pairs: K = 3 keeps 4
+// blocks an SM, longer lists take fewer.
+template <int K, int SPLIT>
+__global__ void __launch_bounds__(kMxuThreads, K <= 4 ? 4 : (K <= 8 ? 2 : 1))
 knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
                 const uint4* __restrict__ pack, const float* __restrict__ center,
                 int nq, int ns, int ns_pad, int step,
@@ -512,13 +532,13 @@ knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
   }
   // rows 2mt (query g of tile mt) and 2mt+1 (query g+8)
   const float inf = __int_as_float(0x7F800000);
-  float bv[4][3], thr[4];
-  int bi[4][3];
+  float bv[4][K], thr[4];
+  int bi[4][K];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     thr[r] = inf;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < K; ++k) {
       bv[r][k] = inf;
       bi[r][k] = kKeyMax;
     }
@@ -568,16 +588,16 @@ knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             if (m[r] <= thr[r]) {
-              merge3(d[r / 2][2 * (r % 2)], col, bv[r], bi[r]);
-              merge3(d[r / 2][2 * (r % 2) + 1], col + 1, bv[r], bi[r]);
-              thr[r] = fminf(thr[r], bv[r][2]);
+              merge_k<K>(d[r / 2][2 * (r % 2)], col, bv[r], bi[r]);
+              merge_k<K>(d[r / 2][2 * (r % 2) + 1], col + 1, bv[r], bi[r]);
+              thr[r] = fminf(thr[r], bv[r][K - 1]);
             }
           }
         }
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        float x = bv[r][2];
+        float x = bv[r][K - 1];
         x = fminf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
         thr[r] = fminf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
       }
@@ -590,28 +610,28 @@ knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
   for (int off = 1; off <= 2; off <<= 1) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      float ov[3];
-      int oi[3];
+      float ov[K];
+      int oi[K];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < K; ++k) {
         ov[k] = __shfl_xor_sync(0xFFFFFFFFu, bv[r][k], off);
         oi[k] = __shfl_xor_sync(0xFFFFFFFFu, bi[r][k], off);
       }
 #pragma unroll
-      for (int k = 0; k < 3; ++k) merge3(ov[k], oi[k], bv[r], bi[r]);
+      for (int k = 0; k < K; ++k) merge_k<K>(ov[k], oi[k], bv[r], bi[r]);
     }
   }
   // then the SPLIT warps that share the queries, through shared memory
-  float* mv = reinterpret_cast<float*>(&stage[0][0]);   // [SPLIT][kQueries][3]
+  float* mv = reinterpret_cast<float*>(&stage[0][0]);   // [SPLIT][kQueries][K]
   int* mi = reinterpret_cast<int*>(&stage[1][0]);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int ql = qw + 16 * (r / 2) + 8 * (r % 2) + g;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        mv[(part * kQueries + ql) * 3 + k] = bv[r][k];
-        mi[(part * kQueries + ql) * 3 + k] = bi[r][k];
+      for (int k = 0; k < K; ++k) {
+        mv[(part * kQueries + ql) * K + k] = bv[r][k];
+        mi[(part * kQueries + ql) * K + k] = bi[r][k];
       }
     }
   }
@@ -619,28 +639,28 @@ knn3_mxu_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_mask,
   const int ql = threadIdx.x;
   const int qi = qbase + ql;
   if (ql >= kQueries || qi >= nq) return;
-  float v[3];
-  int id[3];
+  float v[K];
+  int id[K];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    v[k] = mv[ql * 3 + k];
-    id[k] = mi[ql * 3 + k];
+  for (int k = 0; k < K; ++k) {
+    v[k] = mv[ql * K + k];
+    id[k] = mi[ql * K + k];
   }
 #pragma unroll
   for (int p = 1; p < SPLIT; ++p) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      merge3(mv[(p * kQueries + ql) * 3 + k], mi[(p * kQueries + ql) * 3 + k],
-             v, id);
+    for (int k = 0; k < K; ++k) {
+      merge_k<K>(mv[(p * kQueries + ql) * K + k],
+                 mi[(p * kQueries + ql) * K + k], v, id);
     }
   }
   const bool qm = q_mask[qi] != 0;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
+  for (int k = 0; k < K; ++k) {
     const float d = fmaxf(v[k] - 1.0f, 0.0f);
-    out_d[3 * qi + k] = d;
-    out_i[3 * qi + k] = min(id[k], ns - 1);
-    out_v[3 * qi + k] = (qm && d < kValidMax) ? 1 : 0;
+    out_d[K * qi + k] = d;
+    out_i[K * qi + k] = min(id[k], ns - 1);
+    out_v[K * qi + k] = (qm && d < kValidMax) ? 1 : 0;
   }
 }
 
@@ -649,14 +669,11 @@ int blocks_for(int nq, int queries_per_block) {
   return (nq + queries_per_block - 1) / queries_per_block;
 }
 
-}  // namespace
-
-extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
-                                 const float* s, const uint8_t* s_mask,
-                                 int nq, int ns, int ns_pad, int idx_bits,
-                                 float* out_d, int* out_i, uint8_t* out_v,
-                                 void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int K>
+int exact_launch(const float* q, const uint8_t* q_mask, const float* s,
+                 const uint8_t* s_mask, int nq, int ns, int ns_pad,
+                 int idx_bits, float* out_d, int* out_i, uint8_t* out_v,
+                 cudaStream_t st) {
   const int step = visit_step(ns_pad);
   // lanes per kQ queries: the fewest that still give every SM 4 blocks
   const int want = 4 * sm_count();
@@ -665,23 +682,61 @@ extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
   const int b16 = blocks_for(nq, kQ * kExactThreads / 16);
   const int b32 = blocks_for(nq, kQ * kExactThreads / 32);
   if (b4 >= want) {
-    knn3_exact_kernel<4><<<b4, kExactThreads, 0, st>>>(
+    knn3_exact_kernel<K, 4><<<b4, kExactThreads, 0, st>>>(
         q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
         out_v);
   } else if (b8 >= want) {
-    knn3_exact_kernel<8><<<b8, kExactThreads, 0, st>>>(
+    knn3_exact_kernel<K, 8><<<b8, kExactThreads, 0, st>>>(
         q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
         out_v);
   } else if (b16 >= want) {
-    knn3_exact_kernel<16><<<b16, kExactThreads, 0, st>>>(
+    knn3_exact_kernel<K, 16><<<b16, kExactThreads, 0, st>>>(
         q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
         out_v);
   } else {
-    knn3_exact_kernel<32><<<b32, kExactThreads, 0, st>>>(
+    knn3_exact_kernel<K, 32><<<b32, kExactThreads, 0, st>>>(
         q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, out_d, out_i,
         out_v);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int mxu_launch(const float* q, const uint8_t* q_mask, const uint4* pack,
+               const float* center, int nq, int ns, int ns_pad, float* out_d,
+               int* out_i, uint8_t* out_v, cudaStream_t st) {
+  const int step = visit_step(ns_pad / 8);
+  // warps sharing a query tile: the fewest that still give every SM 4
+  // blocks (each SPLIT-th n8 tile of a stage goes to one of them)
+  const int want = 4 * sm_count();
+  const int b1 = blocks_for(nq, 32 * kMxuWarps);
+  const int b2 = blocks_for(nq, 32 * kMxuWarps / 2);
+  const int b4 = blocks_for(nq, 32 * kMxuWarps / 4);
+  if (b1 >= want) {
+    knn3_mxu_kernel<K, 1><<<b1, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  } else if (b2 >= want) {
+    knn3_mxu_kernel<K, 2><<<b2, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  } else {
+    knn3_mxu_kernel<K, 4><<<b4, kMxuThreads, 0, st>>>(
+        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
+                                 const float* s, const uint8_t* s_mask,
+                                 int nq, int ns, int ns_pad, int idx_bits,
+                                 int k, float* out_d, int* out_i,
+                                 uint8_t* out_v, void* stream) {
+  // this library's list length only
+  if (k != KNN_K) return static_cast<int>(cudaErrorInvalidValue);
+  return exact_launch<KNN_K>(q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits,
+                             out_d, out_i, out_v,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // scratch: the packed support operand (ns_pad x 32 B), then the center
@@ -696,33 +751,18 @@ extern "C" int mxu_pack_launch(const float* s, const uint8_t* s_mask, int ns,
 }
 
 // Two launches: the support pack into `scratch` (as mxu_pack_launch), then
-// the product with its top-3.
+// the product with its top-k.
 extern "C" int knn3_mxu_launch(const float* q, const uint8_t* q_mask,
                                const float* s, const uint8_t* s_mask,
-                               int nq, int ns, int ns_pad, void* scratch,
-                               float* out_d, int* out_i, uint8_t* out_v,
-                               void* stream) {
+                               int nq, int ns, int ns_pad, int k,
+                               void* scratch, float* out_d, int* out_i,
+                               uint8_t* out_v, void* stream) {
+  if (k != KNN_K) return static_cast<int>(cudaErrorInvalidValue);
   const int err = mxu_pack_launch(s, s_mask, ns, ns_pad, scratch, stream);
   if (err != 0) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint4* pack = static_cast<const uint4*>(scratch);
-  const float* center = reinterpret_cast<const float*>(pack + 2 * ns_pad);
-  const int step = visit_step(ns_pad / 8);
-  // warps sharing a query tile: the fewest that still give every SM 4
-  // blocks (each SPLIT-th n8 tile of a stage goes to one of them)
-  const int want = 4 * sm_count();
-  const int b1 = blocks_for(nq, 32 * kMxuWarps);
-  const int b2 = blocks_for(nq, 32 * kMxuWarps / 2);
-  const int b4 = blocks_for(nq, 32 * kMxuWarps / 4);
-  if (b1 >= want) {
-    knn3_mxu_kernel<1><<<b1, kMxuThreads, 0, st>>>(
-        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
-  } else if (b2 >= want) {
-    knn3_mxu_kernel<2><<<b2, kMxuThreads, 0, st>>>(
-        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
-  } else {
-    knn3_mxu_kernel<4><<<b4, kMxuThreads, 0, st>>>(
-        q, q_mask, pack, center, nq, ns, ns_pad, step, out_d, out_i, out_v);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return mxu_launch<KNN_K>(q, q_mask, pack,
+                           reinterpret_cast<const float*>(pack + 2 * ns_pad),
+                           nq, ns, ns_pad, out_d, out_i, out_v,
+                           static_cast<cudaStream_t>(stream));
 }

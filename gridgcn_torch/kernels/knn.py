@@ -1,4 +1,4 @@
-"""Flash-kNN: the decoder's 3-NN query, as hand-written CUDA kernels.
+"""Flash-kNN: the decoder's k-NN query, as hand-written CUDA kernels.
 
 Two kernels in `csrc/knn.cu`, each with a plain PyTorch version of the same
 function beside its wrapper:
@@ -22,12 +22,17 @@ program runs the kernel; a loader imports this module first. Dispatch is by
 the device of the tensors passed in: a CUDA tensor launches the kernel or
 raises, a CPU tensor runs the plain version. Nothing falls back. The
 kernels are compiled from the package's sources with `nvcc` on first CUDA
-use (`build_kernels`), never at import. The CUDA implementation counts the
+use (`build_kernels`), never at import: one library per list length k,
+built when a call first asks for that k. The CUDA implementation counts the
 calls in which it launches its kernels in a plain integer attribute of the
 public wrapper, `knn3_mxu.launches`, also inside an exported program;
 `knn3_mxu` also adds its pack to `mxu_pack_support.launches`. Every output
 is a tensor of its own (a custom op's outputs may not alias), and the mxu
 call's packed supports a fourth.
+
+Both kernels take the list length k (default 3, the decoder's) for
+1 ≤ k ≤ MAX_K: `knn.cu` is built once for each k that is used
+(`-DKNN_K=k`); a longer list raises. The plain versions take any k.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 
 _BIG = 1e30
 _VALID_MAX = _BIG * 0.5
+MAX_K = 16          # the longest list the CUDA kernels are instantiated for
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("knn.cu",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -57,7 +63,7 @@ _REF_CHUNK_ELEMS = 1 << 25
 # of the lane with threadID_in_group t)
 PACK_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -68,50 +74,55 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(source: str) -> Path:
+def _lib_path(source: str, k: int) -> Path:
     digest = hashlib.sha1((_CSRC / source).read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_k{k}-{digest}.so"
 
 
-def build_kernels() -> dict[str, str]:
-    """Compile every CUDA source of the package that is not built yet, one
-    `nvcc` per source, all started together; raises if a build fails.
-    Returns {source: compiler log} for every source: the `-Xptxas -v`
-    register, shared-memory and spill report, kept beside the library."""
+def build_kernels(ks=(3,)) -> dict[str, str]:
+    """Compile every CUDA source of the package for each list length in
+    `ks` that is not built yet, one `nvcc` per source and length, all
+    started together; raises if a build fails. Returns {"<source> k=<k>":
+    compiler log} for those builds: the `-Xptxas -v` register,
+    shared-memory and spill report, kept beside the library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = [(src, check_k(k)) for src in SOURCES for k in ks]
     procs = {}
-    for src in SOURCES:
-        out = _lib_path(src)
+    for src, k in builds:
+        out = _lib_path(src, k)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[src] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+        procs[src, k] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, f"-DKNN_K={k}", "-o", str(tmp),
+             str(_CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for src, (out, tmp, proc) in procs.items():
+    for (src, k), (out, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {src} (k={k}):\n{log}")
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-    return {src: _lib_path(src).with_suffix(".log").read_text()
-            for src in SOURCES}
+    return {f"{src} k={k}": _lib_path(src, k).with_suffix(".log").read_text()
+            for src, k in builds}
 
 
-def _lib(source: str) -> ctypes.CDLL:
-    if source not in _libs:
-        build_kernels()
-        lib = ctypes.CDLL(str(_lib_path(source)))
+def _lib(source: str, k: int) -> ctypes.CDLL:
+    if (source, k) not in _libs:
+        build_kernels((k,))
+        lib = ctypes.CDLL(str(_lib_path(source, k)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.knn3_exact_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
+        lib.knn3_exact_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p,
+                                          p]
         lib.knn3_exact_launch.restype = i
-        lib.knn3_mxu_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
+        lib.knn3_mxu_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p,
+                                        p]
         lib.knn3_mxu_launch.restype = i
         lib.mxu_pack_launch.argtypes = [p, p, i, i, p, p]
         lib.mxu_pack_launch.restype = i
-        _libs[source] = lib
-    return _libs[source]
+        _libs[source, k] = lib
+    return _libs[source, k]
 
 
 def _device(*ts: torch.Tensor) -> torch.device:
@@ -167,20 +178,28 @@ def _pack_bytes(ns: int) -> int:
     return -(-ns // 128) * 128 * 32 + 16
 
 
-def _outputs(nq: int, like: torch.Tensor) -> tuple:
-    """d2 f32 [nq, 3], idx int32 [nq, 3] and valid bool [nq, 3] on
+def _outputs(nq: int, like: torch.Tensor, k: int = 3) -> tuple:
+    """d2 f32 [nq, k], idx int32 [nq, k] and valid bool [nq, k] on
     `like`'s device, each a tensor of its own."""
-    return (like.new_empty((nq, 3)),
-            like.new_empty((nq, 3), dtype=torch.int32),
-            like.new_empty((nq, 3), dtype=torch.bool))
+    return (like.new_empty((nq, k)),
+            like.new_empty((nq, k), dtype=torch.int32),
+            like.new_empty((nq, k), dtype=torch.bool))
 
 
-_KNN_SCHEMA = ("(Tensor q_xyz, Tensor q_mask, Tensor s_xyz, Tensor s_mask)"
-               " -> (Tensor, Tensor, Tensor)")
+def check_k(k: int) -> int:
+    """k, if the kernels take it: 1 ≤ k ≤ MAX_K."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the flash-kNN kernels take 1 <= k <= {MAX_K} "
+                         f"(MAX_K), got k={k}")
+    return k
 
 
-def _knn_fake(q_xyz, q_mask, s_xyz, s_mask):
-    return _outputs(q_xyz.shape[0], q_xyz)
+_KNN_SCHEMA = ("(Tensor q_xyz, Tensor q_mask, Tensor s_xyz, Tensor s_mask,"
+               " int k=3) -> (Tensor, Tensor, Tensor)")
+
+
+def _knn_fake(q_xyz, q_mask, s_xyz, s_mask, k=3):
+    return _outputs(q_xyz.shape[0], q_xyz, k)
 
 
 def visit_step(n: int) -> int:
@@ -202,9 +221,9 @@ def exact_layout(ns: int) -> tuple[int, int]:
     return ns_pad, max(1, int(ns_pad - 1).bit_length())
 
 
-def knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask):
+def knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
     """Plain version of `knn3_exact`: the same packed keys over the
-    [Nq, ns_pad] matrix, in query chunks, and the 3 smallest."""
+    [Nq, ns_pad] matrix, in query chunks, and the k smallest."""
     nq, ns = q_xyz.shape[0], s_xyz.shape[0]
     ns_pad, idx_bits = exact_layout(ns)
     low = (1 << idx_bits) - 1
@@ -225,33 +244,33 @@ def knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask):
         d2 = (dx * dx + dy * dy) + dz * dz
         d2 = torch.where(sm[None], d2, _BIG)
         keys = (d2.view(torch.int32) & ~low) | col
-        tops.append(torch.topk(keys, 3, dim=-1, largest=False,
+        tops.append(torch.topk(keys, k, dim=-1, largest=False,
                                sorted=True).values)
     top = torch.cat(tops) if tops else torch.empty(
-        (0, 3), dtype=torch.int32, device=dev)
+        (0, k), dtype=torch.int32, device=dev)
     d2 = (top & ~low).view(torch.float32)
     return d2, top & low, (d2 < _VALID_MAX) & q_mask[:, None]
 
 
 @torch.library.custom_op("gridgcn::knn3_exact", mutates_args=(),
                          device_types="cpu", schema=_KNN_SCHEMA)
-def _knn3_exact_op(q_xyz, q_mask, s_xyz, s_mask):
-    return knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask)
+def _knn3_exact_op(q_xyz, q_mask, s_xyz, s_mask, k=3):
+    return knn3_exact_ref(q_xyz, q_mask, s_xyz, s_mask, k)
 
 
 _knn3_exact_op.register_fake(_knn_fake)
 
 
 @_knn3_exact_op.register_kernel("cuda")
-def _knn3_exact_cuda(q_xyz, q_mask, s_xyz, s_mask):
+def _knn3_exact_cuda(q_xyz, q_mask, s_xyz, s_mask, k=3):
     nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
-    out_d, out_i, out_v = _outputs(nq, q_xyz)
+    out_d, out_i, out_v = _outputs(nq, q_xyz, check_k(k))
     if nq == 0:
         return out_d, out_i, out_v
     ns_pad, idx_bits = exact_layout(ns)
-    err = _lib("knn.cu").knn3_exact_launch(
+    err = _lib("knn.cu", k).knn3_exact_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
-        s_mask.data_ptr(), nq, ns, ns_pad, idx_bits, out_d.data_ptr(),
+        s_mask.data_ptr(), nq, ns, ns_pad, idx_bits, k, out_d.data_ptr(),
         out_i.data_ptr(), out_v.data_ptr(), _stream(q_xyz.device))
     if err != 0:
         raise RuntimeError(f"knn3_exact launch failed: CUDA error {err}")
@@ -259,12 +278,14 @@ def _knn3_exact_cuda(q_xyz, q_mask, s_xyz, s_mask):
     return out_d, out_i, out_v
 
 
-def knn3_exact(q_xyz, q_mask, s_xyz, s_mask):
-    """Exact 3-NN: q_xyz [Nq, 3] f32, q_mask [Nq] bool, s_xyz [Ns, 3] f32,
-    s_mask [Ns] bool → (d2 [Nq, 3] f32 truncated, idx [Nq, 3] int32,
-    valid [Nq, 3] bool). The custom op `gridgcn::knn3_exact`."""
+def knn3_exact(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
+    """Exact k-NN (1 ≤ k ≤ MAX_K): q_xyz [Nq, 3] f32, q_mask [Nq] bool,
+    s_xyz [Ns, 3] f32, s_mask [Ns] bool → (d2 [Nq, k] f32 truncated,
+    idx [Nq, k] int32, valid [Nq, k] bool). The custom op
+    `gridgcn::knn3_exact`."""
     _device(q_xyz, q_mask, s_xyz, s_mask)
-    return torch.ops.gridgcn.knn3_exact(q_xyz, q_mask, s_xyz, s_mask)
+    return torch.ops.gridgcn.knn3_exact(q_xyz, q_mask, s_xyz, s_mask,
+                                        check_k(k))
 
 
 knn3_exact.launches = 0
@@ -329,10 +350,10 @@ def mxu_pack(q_xyz, s_xyz, s_mask):
     return qb.contiguous(), sb, ns_pad
 
 
-def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask):
+def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
     """Plain version of `knn3_mxu`: the same centering and packing, an f32
-    product of the upcast bf16 operands, and an exact top-3 (ties to the
-    lower column, three first-occurrence argmin passes), in query chunks."""
+    product of the upcast bf16 operands, and an exact top-k (ties to the
+    lower column, k first-occurrence argmin passes), in query chunks."""
     nq, ns = q_xyz.shape[0], s_xyz.shape[0]
     c = mxu_center(s_xyz, s_mask)
     qb, sb, ns_pad = mxu_pack(q_xyz.float() - c, s_xyz.float() - c, s_mask)
@@ -342,7 +363,7 @@ def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask):
     for c0 in range(0, nq, chunk):
         v = qb[c0:c0 + chunk].float() @ sf                   # d² + 1
         cd, ci = [], []
-        for _ in range(3):
+        for _ in range(k):
             i = torch.argmin(v, dim=-1, keepdim=True)
             cd.append(torch.gather(v, 1, i))
             ci.append(i)
@@ -350,9 +371,9 @@ def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask):
         ds.append(torch.cat(cd, 1))
         idxs.append(torch.cat(ci, 1))
     dev = q_xyz.device
-    dp1 = torch.cat(ds) if ds else torch.empty((0, 3), device=dev)
+    dp1 = torch.cat(ds) if ds else torch.empty((0, k), device=dev)
     idx = torch.cat(idxs) if idxs else torch.empty(
-        (0, 3), dtype=torch.int64, device=dev)
+        (0, k), dtype=torch.int64, device=dev)
     d2 = torch.clamp_min(dp1 - 1.0, 0.0)
     idx = torch.clamp_max(idx, ns - 1).int()
     return d2, idx, (d2 < _VALID_MAX) & q_mask[:, None]
@@ -360,24 +381,24 @@ def knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask):
 
 @torch.library.custom_op("gridgcn::knn3_mxu", mutates_args=(),
                          device_types="cpu", schema=_KNN_SCHEMA)
-def _knn3_mxu_op(q_xyz, q_mask, s_xyz, s_mask):
-    return knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask)
+def _knn3_mxu_op(q_xyz, q_mask, s_xyz, s_mask, k=3):
+    return knn3_mxu_ref(q_xyz, q_mask, s_xyz, s_mask, k)
 
 
 _knn3_mxu_op.register_fake(_knn_fake)
 
 
 @_knn3_mxu_op.register_kernel("cuda")
-def _knn3_mxu_cuda(q_xyz, q_mask, s_xyz, s_mask):
+def _knn3_mxu_cuda(q_xyz, q_mask, s_xyz, s_mask, k=3):
     nq, ns = _check(q_xyz, q_mask, s_xyz, s_mask)
-    out_d, out_i, out_v = _outputs(nq, q_xyz)
+    out_d, out_i, out_v = _outputs(nq, q_xyz, check_k(k))
     if nq == 0:
         return out_d, out_i, out_v
     pack = torch.empty(_pack_bytes(ns), dtype=torch.uint8,
                        device=q_xyz.device)
-    err = _lib("knn.cu").knn3_mxu_launch(
+    err = _lib("knn.cu", k).knn3_mxu_launch(
         q_xyz.data_ptr(), q_mask.data_ptr(), s_xyz.data_ptr(),
-        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, pack.data_ptr(),
+        s_mask.data_ptr(), nq, ns, -(-ns // 128) * 128, k, pack.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
         _stream(q_xyz.device))
     if err != 0:
@@ -387,13 +408,14 @@ def _knn3_mxu_cuda(q_xyz, q_mask, s_xyz, s_mask):
     return out_d, out_i, out_v
 
 
-def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask):
-    """Near-exact 3-NN from split-bf16 distances: q_xyz [Nq, 3] f32,
-    q_mask [Nq] bool, s_xyz [Ns, 3] f32, s_mask [Ns] bool → (d2 [Nq, 3]
-    f32, idx [Nq, 3] int32, valid [Nq, 3] bool). The custom op
+def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
+    """Near-exact k-NN from split-bf16 distances (1 ≤ k ≤ MAX_K): q_xyz
+    [Nq, 3] f32, q_mask [Nq] bool, s_xyz [Ns, 3] f32, s_mask [Ns] bool →
+    (d2 [Nq, k] f32, idx [Nq, k] int32, valid [Nq, k] bool). The custom op
     `gridgcn::knn3_mxu`."""
     _device(q_xyz, q_mask, s_xyz, s_mask)
-    return torch.ops.gridgcn.knn3_mxu(q_xyz, q_mask, s_xyz, s_mask)
+    return torch.ops.gridgcn.knn3_mxu(q_xyz, q_mask, s_xyz, s_mask,
+                                      check_k(k))
 
 
 knn3_mxu.launches = 0
@@ -432,7 +454,7 @@ def _mxu_pack_cuda(s_xyz, s_mask):
     ns = _check_supports(s_xyz, s_mask)
     buf = torch.empty(_pack_bytes(ns), dtype=torch.uint8,
                       device=s_xyz.device)
-    err = _lib("knn.cu").mxu_pack_launch(
+    err = _lib("knn.cu", 3).mxu_pack_launch(
         s_xyz.data_ptr(), s_mask.data_ptr(), ns, -(-ns // 128) * 128,
         buf.data_ptr(), _stream(s_xyz.device))
     if err != 0:
@@ -457,22 +479,21 @@ mxu_pack_support.launches = 0
 
 def flash_three_nn(query_xyz, query_mask, support_xyz, support_mask,
                    k: int = 3, variant: str = "mxu"):
-    """Batched 3-NN with inverse-distance weights: query [B, Nq, 3] /
-    [B, Nq], support [B, Ns, 3] / [B, Ns] → (idx [B, Nq, 3] int64,
-    weights [B, Nq, 3] f32, found [B, Nq] bool).
+    """Batched k-NN with inverse-distance weights: query [B, Nq, 3] /
+    [B, Nq], support [B, Ns, 3] / [B, Ns] → (idx [B, Nq, k] int64,
+    weights [B, Nq, k] f32, found [B, Nq] bool), 1 ≤ k ≤ MAX_K.
 
     variant="mxu" (the decoder's) or "exact". Indices and distances carry
     no gradient, like the reference's zero-backward gridify_up."""
-    if k != 3:
-        raise NotImplementedError("the flash-kNN kernels are k=3 only")
+    check_k(k)
     if variant == "mxu":
         knn = knn3_mxu
     elif variant == "exact":
         knn = knn3_exact
     else:
         raise ValueError(f"unknown variant {variant!r}")
-    outs = [knn(query_xyz[b], query_mask[b], support_xyz[b], support_mask[b])
-            for b in range(query_xyz.shape[0])]
+    outs = [knn(query_xyz[b], query_mask[b], support_xyz[b], support_mask[b],
+                k) for b in range(query_xyz.shape[0])]
     d2 = torch.stack([o[0] for o in outs]).detach()
     idx = torch.stack([o[1] for o in outs]).long()
     valid = torch.stack([o[2] for o in outs])

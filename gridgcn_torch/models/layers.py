@@ -124,18 +124,29 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
     @torch.no_grad()
-    def update_running_stats(self) -> None:
-        """Fold the statistics of the last training forward into the
-        running ones as flax does, m·running + (1 − m)·batch with the
-        biased variance, and forget them. A no-op without a training
-        forward since the last update."""
+    def folded_stats(self):
+        """The running statistics with those of the last training forward
+        folded in as flax folds them, m·running + (1 − m)·batch with the
+        biased variance, as new tensors ((mean, var); the running ones
+        when no training forward was recorded)."""
         if self.batch_stats is None:
-            return
+            return self.running_mean.clone(), self.running_var.clone()
         m = float(np.float32(self.momentum))
         keep = float(np.float32(1.0 - self.momentum))
-        for ra, batch in zip((self.running_mean, self.running_var),
-                             self.batch_stats):
-            ra.copy_(ra * m + keep * batch)
+        return tuple(ra * m + keep * batch for ra, batch in
+                     zip((self.running_mean, self.running_var),
+                         self.batch_stats))
+
+    @torch.no_grad()
+    def update_running_stats(self) -> None:
+        """Fold the statistics of the last training forward into the
+        running ones (`folded_stats`) and forget them. A no-op without a
+        training forward since the last update."""
+        if self.batch_stats is None:
+            return
+        for ra, new in zip((self.running_mean, self.running_var),
+                           self.folded_stats()):
+            ra.copy_(new)
         self.batch_stats = None
 
 

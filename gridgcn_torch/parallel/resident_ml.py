@@ -1,0 +1,443 @@
+"""Spatial sharding, tier 3: every level sharded, boundary halos exchanged
+between ring neighbours (the JAX package's `parallel/resident_ml.py`).
+
+Tier 2 (`parallel.resident`) shards only the dense level. Here no level is
+ever assembled anywhere:
+
+  encoder, per GridConv level i (every grid global: explicit bounds):
+    * each rank holds its slab's entities and ghost copies of both
+      neighbours' boundary strips;
+    * it samples its share M_i / D of centers and keeps those its slab
+      owns;
+    * two ring shifts (`parallel.mesh.shift`) send the owned centers
+      within one context reach of each slab face, positions and features,
+      into the neighbours' ghost buffers of H rows per face.
+
+  decoder, per stage (coarse → dense):
+    * each rank interpolates all its local entities;
+    * a ghost refresh overwrites every ghost's features with the owner's
+      values: the owner sends the same boundary rows again (the selection
+      was fixed while encoding), so the next stage reads the owners'
+      features everywhere.
+
+Ghost buffers have a fixed size; rows that do not fit are dropped and
+counted (`ghost_overflow`), and `calibrate_ghost_cap` sizes them from the
+scene. The shifts are differentiable (the backward is the reverse shift),
+so the tier trains (`parallel.spatial_train`). BatchNorm statistics are
+each rank's own, and the folded running statistics are averaged over the
+ring (then over the scenes of a 2-D mesh), as in the JAX package.
+
+Keys: level i's CAGQ draws from `fold_in(fold_in(rng, i), d)`, decoder
+stage i from `fold_in(fold_in(rng, 100 + i), d)`, the head's dropout from
+`fold_in(rng, 55200)`; on a 2-D mesh `rng` is the scene's row of
+`split(rng, B)` and d the rank's place on the ring.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gridgcn_torch.configs.base import Config
+from gridgcn_torch.parallel.mesh import (
+    DATA_AXIS, SPACE_AXIS, Mesh, all_gather_exact, shift)
+from gridgcn_torch.parallel.resident import (
+    grid_key, input_features, resident_halo, ring_mean_stats, scene_bounds,
+    sharded_centers, slab_inputs, stage_key, stitch)
+from gridgcn_torch.parallel.spatial import (
+    _slab_edges, partition_scene, suggest_capacity)
+from gridgcn_torch.utils import jaxrng
+from gridgcn_torch.utils.precision import full_fp32
+
+
+def _band_index(x: torch.Tensor, sel: torch.Tensor, H: int):
+    """The first H selected rows, in order: (idx [H] int32, ok [H],
+    dropped), dropped the selected rows beyond H. Each row has a
+    destination of its own: a kept row its rank, every other row a private
+    slot ≥ H that the final [:H] discards."""
+    M = x.shape[0]
+    rank = torch.cumsum(sel.to(torch.int32), 0) - 1
+    arange = torch.arange(M, dtype=torch.int32, device=x.device)
+    dest = torch.where(sel & (rank < H), rank, H + arange)
+    idx = torch.full((H + M,), -1, dtype=torch.int32, device=x.device)
+    idx = idx.scatter(0, dest.long(), arange)[:H]
+    dropped = torch.clamp_min(sel.sum() - H, 0)
+    return torch.clamp_min(idx, 0), idx >= 0, dropped
+
+
+def _take(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
+    out = arr[idx.long()]
+    return torch.where(ok.reshape(-1, *([1] * (out.dim() - 1))), out, 0)
+
+
+def exchange_boundary(xyz, feat, valid, lo, hi, width, H, mesh: Mesh):
+    """Send this rank's owned boundary entities to both ring neighbours.
+    xyz [M, 3], feat [M, C], valid [M] are the rank's owned level, [lo, hi)
+    its slab on the partition axis. Returns (g_xyz [2H, 3], g_feat [2H, C],
+    g_valid [2H], send, dropped): the ghosts received from the left
+    neighbour, then from the right; the send selections
+    ((idx_r, ok_r), (idx_l, ok_l)) that `refresh_ghosts` reuses; and the
+    boundary rows that did not fit the H rows of a face."""
+    x = xyz[:, 0]
+    idx_r, ok_r, drop_r = _band_index(x, valid & (x >= hi - width), H)
+    idx_l, ok_l, drop_l = _band_index(x, valid & (x < lo + width), H)
+    parts = []
+    for direction, (idx, ok) in ((1, (idx_r, ok_r)), (-1, (idx_l, ok_l))):
+        parts.append((shift(_take(xyz, idx, ok), mesh, direction),
+                      shift(_take(feat, idx, ok), mesh, direction),
+                      shift(ok, mesh, direction)))
+    (lx, lf, lv), (rx, rf, rv) = parts
+    return (torch.cat([lx, rx]), torch.cat([lf, rf]), torch.cat([lv, rv]),
+            ((idx_r, ok_r), (idx_l, ok_l)), drop_r + drop_l)
+
+
+def refresh_ghosts(feat_own, send, mesh: Mesh):
+    """The same boundary rows' updated features sent again: the refreshed
+    ghost block [2H, C], the left neighbour's rows first."""
+    (idx_r, ok_r), (idx_l, ok_l) = send
+    return torch.cat([shift(_take(feat_own, idx_r, ok_r), mesh, 1),
+                      shift(_take(feat_own, idx_l, ok_l), mesh, -1)])
+
+
+def ghost_band_widths(cfg: Config, extent: np.ndarray) -> list:
+    """Each level's boundary band in world units: the context reach of the
+    next level's grid (the last level's own: it is the first decoder
+    stage's support)."""
+    widths = []
+    n = len(cfg.model.layers)
+    for i, layer in enumerate(cfg.model.layers):
+        spec = cfg.model.layers[i + 1] if i + 1 < n else layer
+        vsize = np.max(extent) * (1.0 + 1e-5) / spec.resolution
+        widths.append(float((spec.context // 2 + 1) * vsize))
+    return widths
+
+
+def calibrate_ghost_cap(cfg: Config, xyz: np.ndarray, mask: np.ndarray,
+                        n_shards: int, safety: float = 2.0,
+                        round_to: int = 8) -> tuple:
+    """Per-level ghost_cap from the scene's boundary-band occupancy: the
+    share of a slab's points within a band of each interior face, at its
+    worst, times the level's per-shard center share and `safety`, rounded
+    up to `round_to` and clamped to [8, share]. The forward's overflow
+    counters verify the estimate."""
+    pts = np.asarray(xyz)[np.asarray(mask)]
+    x = pts[:, 0]
+    edges = _slab_edges(x, n_shards)
+    res0 = cfg.model.layers[0].resolution
+    _, vsize = scene_bounds(pts, np.ones(len(pts), bool), res0)
+    extent = vsize * res0 / (1.0 + 1e-5)
+
+    caps = []
+    for layer, width in zip(cfg.model.layers, ghost_band_widths(cfg, extent)):
+        share = max(1, layer.n_centers // n_shards)
+        worst = 0.0
+        for d in range(n_shards):
+            in_slab = (x >= edges[d]) & (x < edges[d + 1])
+            n_slab = max(int(in_slab.sum()), 1)
+            if d + 1 < n_shards:
+                worst = max(worst, float(
+                    (in_slab & (x >= edges[d + 1] - width)).sum()) / n_slab)
+            if d > 0:
+                worst = max(worst, float(
+                    (in_slab & (x < edges[d] + width)).sum()) / n_slab)
+        need = int(np.ceil(share * worst * safety))
+        need = -(-max(need, round_to) // round_to) * round_to
+        caps.append(int(min(need, max(8, share))))
+    return tuple(caps)
+
+
+def make_resident_ml_forward(cfg: Config, mesh: Mesh, ghost_cap=0,
+                             axis_name: str = DATA_AXIS,
+                             train: bool = False,
+                             debug_capture: bool = False,
+                             batch_axis: Optional[str] = None):
+    """The tier-3 forward, on each rank for its own slab:
+
+        fwd(model, sx [1, cap, 3], sm [1, cap], edges [D+1], origin [3],
+            extent [3], rng) -> (logits [1, cap, C], ghost_overflow [1])
+
+    (sf [1, cap, in_channels] after sx when the config has input
+    channels), the ring being the mesh's `axis_name`. `ghost_cap`: the
+    ghost rows per face and level, an int for every level or a sequence
+    (0: the level's whole per-shard share, which cannot overflow);
+    `ghost_overflow` counts the boundary rows this rank could not send.
+    train=True: batch-statistics BatchNorm and live dropout, and fwd
+    returns (logits, overflow, stats), the folded running statistics
+    averaged over the ring (`resident.ring_mean_stats`). `debug_capture`
+    (eval only) also returns each ghost-carrying decoder stage's level
+    after its refresh: (xyz, feat, valid, owned).
+
+    `batch_axis` (on a `make_mesh2d` mesh, axis_name=SPACE_AXIS): the
+    rank holds its slab of B_l scenes (its row's share of B):
+    sx [B_l, 1, cap, 3], sm [B_l, 1, cap], edges [B_l, D+1], origin and
+    extent [B_l, 3], rng the scenes' keys [B_l, 2]; the outputs gain the
+    scene axis, and each scene runs on its own (its own BatchNorm
+    statistics, as `jax.vmap` computes them); in training the statistics
+    are averaged over the ring, then over the rank's scenes, then over the
+    data axis."""
+    if debug_capture and train:
+        raise ValueError("debug_capture is an eval-only instrument")
+    if cfg.model.task != "seg":
+        raise ValueError("resident-ml forward is for segmentation models")
+    C_in = cfg.model.in_channels
+    n_layers = len(cfg.model.layers)
+    ring = mesh.axis(axis_name)
+    D = ring.size
+    for i, layer in enumerate(cfg.model.layers):
+        if layer.n_centers % D:
+            raise ValueError(f"layers[{i}].n_centers={layer.n_centers} not "
+                             f"divisible by {D} shards")
+    specs = [dataclasses.replace(layer, n_centers=layer.n_centers // D)
+             for layer in cfg.model.layers]
+    caps = (tuple(int(c) for c in ghost_cap)
+            if isinstance(ghost_cap, (tuple, list, np.ndarray))
+            else (int(ghost_cap),) * n_layers)
+    if len(caps) != n_layers:
+        raise ValueError(f"ghost_cap sequence needs {n_layers} entries, "
+                         f"got {len(caps)}")
+    if batch_axis is not None and debug_capture:
+        raise ValueError("batch_axis (2-D mesh) resident-ml forward does "
+                         "not support debug_capture")
+    data = mesh.axis(batch_axis) if batch_axis is not None else None
+    drop = train and cfg.model.dropout > 0
+    centers = [s.n_centers for s in specs]
+
+    def scene(model, sx, sf, sm, edges, origin, extent, rng):
+        dev = sx.device
+        d = ring.rank
+        edges = torch.as_tensor(edges, device=dev)
+        origin = torch.as_tensor(origin, device=dev)
+        extent = torch.as_tensor(extent, device=dev)
+        lo, hi = edges[d], edges[d + 1]
+
+        def key(i):
+            return jaxrng.fold_in(jaxrng.fold_in(rng, i), d)
+
+        def bounds_for(spec):
+            vsize = extent * (1.0 + 1e-5) / spec.resolution
+            return (origin[None], vsize[None]), vsize
+
+        def reach(spec, vsize):
+            return (spec.context // 2 + 1) * torch.max(vsize)
+
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        feat0 = input_features(cfg, sx, sf)
+        x0 = sx[0, :, 0]
+        # level state: (xyz [1, R, 3], feat, valid [R], owned [R], send)
+        levels = [(sx, feat0, sm[0], sm[0] & (x0 >= lo) & (x0 < hi), None)]
+        xyz, feat, valid = sx, feat0, sm
+        for i in range(n_layers):
+            bounds, vsize = bounds_for(specs[i])
+            c_xyz, c_feat, c_valid = model.encode_layer(
+                i, xyz, feat, valid, stage_key(key(i), i), bounds)
+            cx = c_xyz[0, :, 0]
+            own = c_valid[0] & (cx >= lo) & (cx < hi)
+            if i + 1 < n_layers:
+                width = reach(specs[i + 1], bounds_for(specs[i + 1])[1])
+            else:       # the last level is the first decoder stage's support
+                width = reach(specs[i], vsize)
+            # default: the whole per-shard share, which no band exceeds
+            H = caps[i] or max(8, specs[i].n_centers)
+            g_xyz, g_feat, g_ok, send, dropped = exchange_boundary(
+                c_xyz[0], c_feat[0], own, lo, hi, width, H, ring)
+            overflow = overflow + dropped
+            xyz = torch.cat([c_xyz[0], g_xyz])[None]
+            feat = torch.cat([c_feat[0], g_feat])[None]
+            valid = torch.cat([own, g_ok])[None]
+            owned = torch.cat([own, torch.zeros_like(g_ok)])
+            levels.append((xyz, feat, valid[0], owned, send))
+
+        # decoder: interpolate locally, then refresh the ghosts
+        captures = []
+        c_xyz, c_feat = levels[-1][0], levels[-1][1]
+        c_mask = levels[-1][2][None]
+        for i in range(n_layers):
+            d_xyz, d_feat, d_valid, d_owned, d_send = levels[-2 - i]
+            new_feat = model.decode_stage(
+                i, c_xyz, c_feat, c_mask, d_xyz, d_feat, d_valid[None],
+                grid_key(model, i, c_xyz.shape[1], key(100 + i)))
+            if d_send is not None:
+                # the owned rows come first, then the 2H ghost rows
+                H = d_send[0][0].shape[0]
+                own_feat = new_feat[0, :new_feat.shape[1] - 2 * H]
+                new_feat = torch.cat([own_feat, refresh_ghosts(
+                    own_feat, d_send, ring)])[None]
+                if debug_capture:
+                    captures.append((d_xyz, new_feat, d_valid[None],
+                                     d_owned[None]))
+            c_xyz, c_feat, c_mask = d_xyz, new_feat, d_valid[None]
+
+        logits = model.head_logits(
+            c_feat, jaxrng.fold_in(rng, 55_200) if drop else None)
+        if train:
+            return logits, overflow[None], ring_mean_stats(model, ring)
+        if debug_capture:
+            return logits, overflow[None], tuple(captures)
+        return logits, overflow[None]
+
+    def one(model, *args):
+        model.train(train)
+        with sharded_centers(model, centers):
+            return scene(model, *args)
+
+    def batched(model, sx, sf, sm, edges, origin, extent, rngs):
+        outs = [one(model, sx[b], None if sf is None else sf[b], sm[b],
+                    edges[b], origin[b], extent[b], rngs[b])
+                for b in range(sx.shape[0])]
+        logits = torch.stack([o[0] for o in outs])
+        overflow = torch.stack([o[1] for o in outs])
+        if not train:
+            return logits, overflow
+        # mean over this rank's scenes, then over the data axis
+        names = list(outs[0][2])
+        flat = data.sum_all([torch.stack([o[2][n][j] for o in outs]).mean(0)
+                             for n in names for j in (0, 1)])
+        stats = {n: (flat[2 * i] / data.size, flat[2 * i + 1] / data.size)
+                 for i, n in enumerate(names)}
+        return logits, overflow, stats
+
+    run = one if batch_axis is None else batched
+    if C_in:
+        return run
+
+    def fwd(model, sx, sm, edges, origin, extent, rng):
+        return run(model, sx, None, sm, edges, origin, extent, rng)
+    return fwd
+
+
+def _warn_overflow(n_over: int, what: str) -> None:
+    if n_over:
+        warnings.warn(
+            f"{what}: {n_over} boundary rows overflowed the per-face ghost "
+            f"buffer (ghost_cap); the decoder read stale or zero ghosts — "
+            f"raise ghost_cap", RuntimeWarning, stacklevel=3)
+
+
+def resident_ml_seg_predict(cfg: Config, model, xyz: np.ndarray,
+                            mask: np.ndarray, mesh: Mesh,
+                            capacity: Optional[int] = None,
+                            rng: Optional[np.ndarray] = None,
+                            ghost_cap=0, fwd=None, votes: int = 1,
+                            feat: Optional[np.ndarray] = None) -> np.ndarray:
+    """Whole-scene per-point logits with every level sharded over a 1-D
+    mesh, on every rank: xyz [N, 3], mask [N] → [N, num_classes] (zeros
+    for invalid points). `capacity`, `votes` and `feat` as in
+    `resident.resident_seg_predict`. ghost_cap="auto" calibrates the
+    caps from this scene (`calibrate_ghost_cap`); the caps are part of a
+    forward, so "auto" and a prebuilt `fwd` together raise. A
+    RuntimeWarning reports boundary rows that overflowed."""
+    D = mesh.size
+    if isinstance(ghost_cap, str):
+        if ghost_cap != "auto":
+            raise ValueError(f"ghost_cap must be int/sequence/'auto', "
+                             f"got {ghost_cap!r}")
+        if fwd is not None:
+            raise ValueError("ghost_cap='auto' cannot be combined with a "
+                             "prebuilt fwd: ghost buffers are sized at "
+                             "build time")
+        ghost_cap = calibrate_ghost_cap(cfg, xyz, mask, D)
+    res0 = cfg.model.layers[0].resolution
+    origin, vsize = scene_bounds(xyz, mask, res0)
+    extent = vsize * res0 / (1.0 + 1e-5)
+    halo = resident_halo(cfg, vsize)
+    if capacity is None:
+        capacity = suggest_capacity(xyz, mask, D, halo)
+    sx, sm, owned, sidx, edges = partition_scene(xyz, mask, D, halo,
+                                                 capacity)
+    rows = slice(mesh.rank, mesh.rank + 1)
+    pos = slab_inputs(cfg, sx, sm, sidx, rows, mesh.device, feat)
+    if fwd is None:
+        fwd = make_resident_ml_forward(cfg, mesh, ghost_cap=ghost_cap)
+    rng = jaxrng.PRNGKey(0) if rng is None else rng
+    acc = None
+    with torch.no_grad(), full_fp32():
+        for v in range(votes):
+            k = jaxrng.fold_in(rng, v) if votes > 1 else rng
+            lg, overflow = fwd(model, *pos, edges, origin, extent, k)
+            acc = lg if acc is None else acc + lg
+        # the ghost selection depends on the geometry alone: the last
+        # vote's count stands for every vote
+        logits = all_gather_exact(acc[0], mesh).cpu().numpy()
+        n_over = int(mesh.sum(overflow).sum())
+    _warn_overflow(n_over, "resident-ml")
+    return stitch(logits.reshape(D, capacity, -1) / votes, owned, sidx,
+                  xyz.shape[0])
+
+
+def resident_ml_seg_predict_scenes(cfg: Config, model, scenes_xyz, masks,
+                                   mesh: Mesh,
+                                   capacity: Optional[int] = None,
+                                   rng: Optional[np.ndarray] = None,
+                                   ghost_cap=0, feats=None,
+                                   fwd=None) -> np.ndarray:
+    """B whole scenes at once on a 2-D mesh (`make_mesh2d`), on every
+    rank: scenes_xyz [B, N, 3], masks [B, N] → [B, N, num_classes]. The
+    scenes ride the data axis (each row of the mesh takes B / rows of
+    them), each scene's slabs its row's ring; every scene is partitioned
+    as the 1-D path partitions it, at one capacity (the largest need
+    unless given), under key row b of split(rng, B), so each scene's
+    logits are the 1-D tier-3 path's."""
+    if mesh.shape is None or SPACE_AXIS not in mesh.shape:
+        raise ValueError(f"need a ('{DATA_AXIS}', '{SPACE_AXIS}') mesh "
+                         f"(make_mesh2d); got axes {mesh.axis_names}")
+    ring, data = mesh.axis(SPACE_AXIS), mesh.axis(DATA_AXIS)
+    Ds = ring.size
+    scenes_xyz = np.asarray(scenes_xyz, np.float32)
+    masks = np.asarray(masks, bool)
+    B, N = scenes_xyz.shape[:2]
+    if B % data.size:
+        raise ValueError(f"scene count {B} not divisible by the data axis "
+                         f"({data.size})")
+    res0 = cfg.model.layers[0].resolution
+    C_in = cfg.model.in_channels
+    if C_in and feats is None:
+        raise ValueError(f"cfg.model.in_channels={C_in} requires "
+                         f"feats [B, N, {C_in}]")
+
+    geo, needs = [], []
+    for b in range(B):
+        origin, vsize = scene_bounds(scenes_xyz[b], masks[b], res0)
+        halo = resident_halo(cfg, vsize)
+        needs.append(suggest_capacity(scenes_xyz[b], masks[b], Ds, halo))
+        geo.append((origin, vsize, halo))
+    cap = capacity if capacity is not None else max(needs)
+
+    Bl = B // data.size
+    mine = range(data.rank * Bl, (data.rank + 1) * Bl)
+    parts, local = [], []
+    for b in range(B):
+        origin, vsize, halo = geo[b]
+        sx, sm, owned, sidx, edges = partition_scene(
+            scenes_xyz[b], masks[b], Ds, halo, cap)
+        parts.append((owned, sidx))
+        if b in mine:
+            rows = slice(ring.rank, ring.rank + 1)
+            local.append((slab_inputs(cfg, sx, sm, sidx, rows, mesh.device,
+                                      None if feats is None
+                                      else np.asarray(feats[b], np.float32)),
+                          edges, origin, vsize * res0 / (1.0 + 1e-5)))
+    if fwd is None:
+        fwd = make_resident_ml_forward(cfg, mesh, ghost_cap=ghost_cap,
+                                       axis_name=SPACE_AXIS,
+                                       batch_axis=DATA_AXIS)
+    rng = jaxrng.PRNGKey(0) if rng is None else rng
+    keys = jaxrng.split(rng, B)[data.rank * Bl:(data.rank + 1) * Bl]
+    pos = [torch.stack([loc[0][j] for loc in local])
+           for j in range(len(local[0][0]))]
+    with torch.no_grad(), full_fp32():
+        lg, overflow = fwd(model, *pos,
+                           np.stack([loc[1] for loc in local]),
+                           np.stack([loc[2] for loc in local]),
+                           np.stack([loc[3] for loc in local]), keys)
+        # world rank r = row·Ds + col holds scenes of row r // Ds, slab col
+        g = all_gather_exact(lg[:, 0], mesh).cpu().numpy()
+        n_over = int(mesh.sum(overflow).sum())
+    _warn_overflow(n_over, "resident-ml scenes")
+    C = g.shape[-1]
+    logits = g.reshape(data.size, Ds, Bl, cap, C).transpose(0, 2, 1, 3, 4) \
+        .reshape(B, Ds, cap, C)
+    return np.stack([stitch(logits[b], *parts[b], N) for b in range(B)])

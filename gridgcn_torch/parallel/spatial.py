@@ -8,8 +8,9 @@ the slab's edge, so the unchanged single-device network runs on every slab
 (the slabs ride the mesh's batch axis) and each point's logits are taken
 from the slab that owns it and stitched back in the original order.
 Partitioning runs on the host in numpy, value for value the JAX package's.
-The device-side halo exchange of the resident tiers
-(`exchange_halo_planes`) comes with those tiers.
+`exchange_halo_planes` is the device-side ghost-plane exchange between
+ring neighbours (`parallel.mesh.shift`), the primitive of the resident
+tiers (`parallel.resident`, `parallel.resident_ml`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gridgcn_torch.parallel.mesh import Mesh, fetch_global
+from gridgcn_torch.parallel.mesh import Mesh, fetch_global, shift
 
 
 def required_halo(cfg, extent: float) -> float:
@@ -121,3 +122,11 @@ def sharded_scene_apply(apply_fn, xyz: np.ndarray, mask: np.ndarray,
     out[sidx.reshape(-1)[flat_owned]] = logits.reshape(
         -1, num_outputs)[flat_owned]
     return out
+
+
+def exchange_halo_planes(local: torch.Tensor, mesh: Mesh):
+    """The ghost planes of this rank's slab of a voxel-major array whose
+    leading axis is the sharded spatial axis: (left_ghost, right_ghost),
+    the left neighbour's last plane and the right neighbour's first, each
+    [1, ...]; the grid's two ends get zeros. Differentiable."""
+    return shift(local[-1:], mesh, 1), shift(local[:1], mesh, -1)

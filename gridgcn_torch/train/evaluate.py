@@ -15,10 +15,10 @@ and exits non-zero below it. It runs on the card unless `--device cpu` is
 given. `--mesh N` runs over N ranks (N worker processes, or the ranks of a
 `torchrun` launch): the crop eval through the data-parallel eval step, the
 whole-scene eval through tier-1 spatial sharding (one slab per rank, with
-the vote-invariant halo and capacity of the JAX package); the room eval
-ignores it, as the JAX package's does. The resident tiers' flags
-(`--resident`, `--resident-ml`, `--scene-batch`) are parsed and refused:
-those tiers are not ported yet.
+the vote-invariant halo and capacity of the JAX package), or with
+`--resident` / `--resident-ml` through the resident tiers, or with
+`--resident-ml --scene-batch B` B scenes at a time on a B × N/B mesh; the
+room eval ignores it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -52,10 +52,6 @@ from gridgcn_torch.utils.checkpoint import CheckpointManager
 from gridgcn_torch.utils.logging import MetricLogger
 from gridgcn_torch.utils.precision import full_fp32
 from gridgcn_torch.utils.profiling import steady_state_time
-
-UNPORTED = ("the resident and scene-batched tiers are not ported yet "
-            "(ROADMAP queue 1, item 7: the resident tiers)")
-
 
 def _mesh_for(mesh_devices: int, device):
     """(mesh or None, this rank's device, whether this rank logs)."""
@@ -151,18 +147,38 @@ def _evaluate_worker(*args):
 
 def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
                           voxel_size: float = 0.05, device="cuda",
-                          mesh_devices: int = 0):
+                          mesh_devices: int = 0, resident: bool = False,
+                          resident_ml: bool = False, scene_batch: int = 0):
     """Whole-scene segmentation eval: every test scene at full size,
     `votes` times with CAGQ keys PRNGKey(1000·s + v), its per-point logits
     summed before the confusion matrix; the metrics count the points whose
     label is not the ignore label, and `voxel_acc` is ScanNet's per-voxel
     accuracy on a `voxel_size` grid. mesh_devices=N shards each scene over
     N ranks, tier 1 (`parallel.spatial.sharded_scene_apply`): one slab per
-    rank, the halo and capacity fixed per scene for every vote."""
+    rank, the halo and capacity fixed per scene for every vote. With
+    `resident` (tier 2) or `resident_ml` (tier 3) the scene runs through a
+    resident tier instead, its votes keys fold_in(PRNGKey(1000·s), v).
+    scene_batch B > 1 (tier 3, B dividing N) evaluates B scenes at a time
+    on a B × N/B mesh, the last group padded with its first scene, group
+    g0's keys fold_in(PRNGKey(1000·g0 + v)); it builds no 1-D forward
+    (the JAX package builds one it does not use, and raises where the
+    layers' n_centers do not divide N)."""
+    if (resident or resident_ml) and not mesh_devices:
+        raise ValueError("--resident/--resident-ml require --mesh N (a "
+                         "device mesh to shard over)")
+    if scene_batch and scene_batch > 1:
+        if not resident_ml:
+            raise ValueError("--scene-batch requires --resident-ml")
+        if mesh_devices % scene_batch:
+            raise ValueError(f"--scene-batch {scene_batch} must divide "
+                             f"--mesh {mesh_devices}")
+    else:
+        scene_batch = 0
     if mesh_devices and not dist.is_initialized():
         return launch(_whole_scene_worker,
                       pmesh.mesh_devices(device, mesh_devices), ckpt_dir,
-                      votes, log_path, voxel_size, device, mesh_devices)
+                      votes, log_path, voxel_size, device, mesh_devices,
+                      resident, resident_ml, scene_batch)
     mesh, device, lead = _mesh_for(mesh_devices, device)
     cfg = CheckpointManager.load_config(ckpt_dir)
     if cfg.model.task != "seg":
@@ -176,40 +192,88 @@ def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
     cm = torch.zeros((C, C), dtype=torch.int32, device=dev)
     vox_cm = np.zeros((C, C), np.int64)
 
-    for s in range(val_ds.size):
-        xyz = val_ds.points[s]
-        labels = val_ds.labels[s]
-        mask = np.ones(xyz.shape[0], bool)
+    def metric_mask_for(labels, mask):
         # metric mask only: the forward sees every point, the ScanNet
         # protocol scores the annotated ones
-        metric_mask = (mask & (labels != cfg.model.ignore_label)
-                       if cfg.model.ignore_label is not None else mask)
-        feat = None if val_ds.features is None else val_ds.features[s]
-        acc = None
-        with torch.no_grad(), full_fp32():
-            if mesh is not None:      # vote-invariant partition geometry
-                halo = required_halo(cfg, float(np.ptp(xyz, axis=0).max()))
-                capacity = suggest_capacity(xyz, mask, mesh.size, halo)
-            for v in range(votes):
-                key = jaxrng.PRNGKey(1000 * s + v)
-                if mesh is not None:
-                    lg = torch.as_tensor(sharded_scene_apply(
-                        _slab_forward(state.model, key, feat is not None),
-                        xyz, mask, mesh, halo=halo, capacity=capacity,
-                        num_outputs=C, feat=feat), device=dev)[None]
-                else:
-                    lg = state.model(
-                        torch.as_tensor(xyz[None], device=dev),
-                        None if feat is None
-                        else torch.as_tensor(feat[None], device=dev),
-                        torch.as_tensor(mask[None], device=dev), key)
-                acc = lg if acc is None else acc + lg
+        return (mask & (labels != cfg.model.ignore_label)
+                if cfg.model.ignore_label is not None else mask)
+
+    def score(acc, xyz, labels, mask):
+        nonlocal cm, vox_cm
+        mm = metric_mask_for(labels, mask)
         cm = cm + confusion_matrix(
-            acc, torch.as_tensor(labels[None], device=dev), C,
-            torch.as_tensor(metric_mask[None], device=dev))
-        vox_cm = vox_cm + voxel_confusion(
-            xyz, acc[0].float().cpu().numpy(), labels, metric_mask,
-            voxel_size, C)
+            torch.as_tensor(acc[None], device=dev),
+            torch.as_tensor(labels[None], device=dev), C,
+            torch.as_tensor(mm[None], device=dev))
+        vox_cm = vox_cm + voxel_confusion(xyz, acc, labels, mm, voxel_size,
+                                          C)
+
+    if scene_batch:
+        from gridgcn_torch.parallel.resident_ml import (
+            make_resident_ml_forward, resident_ml_seg_predict_scenes)
+
+        mesh2d = pmesh.make_mesh2d(scene_batch, mesh_devices // scene_batch,
+                                   pmesh.mesh_devices(device, mesh_devices))
+        fwd2 = make_resident_ml_forward(cfg, mesh2d,
+                                        axis_name=pmesh.SPACE_AXIS,
+                                        batch_axis=pmesh.DATA_AXIS)
+        S = val_ds.size
+        for g0 in range(0, S, scene_batch):
+            grp = list(range(g0, min(g0 + scene_batch, S)))
+            grp_p = grp + [grp[0]] * (scene_batch - len(grp))
+            xyzs = np.stack([val_ds.points[i] for i in grp_p])
+            feats = (np.stack([val_ds.features[i] for i in grp_p])
+                     if val_ds.features is not None else None)
+            masks = np.ones(xyzs.shape[:2], bool)
+            acc = None
+            for v in range(votes):
+                lg = resident_ml_seg_predict_scenes(
+                    cfg, state.model, xyzs, masks, mesh2d,
+                    rng=jaxrng.PRNGKey(1000 * g0 + v), feats=feats,
+                    fwd=fwd2)
+                acc = lg if acc is None else acc + lg
+            for j, i in enumerate(grp):
+                score(acc[j], xyzs[j], val_ds.labels[i], masks[j])
+        s_ = summarize_confusion(cm)
+        sv = summarize_confusion(torch.as_tensor(vox_cm,
+                                                 dtype=torch.float32))
+        s_["voxel_acc"] = sv["overall_acc"]
+        log.log("whole_scene_eval", scenes=S, votes=votes,
+                scene_batch=scene_batch,
+                overall_acc=float(s_["overall_acc"]),
+                mean_class_acc=float(s_["mean_class_acc"]),
+                miou=float(s_["miou"]),
+                voxel_size=voxel_size,
+                voxel_acc=float(sv["overall_acc"]))
+        log.close()
+        return s_
+
+    predict_resident = fwd_resident = None
+    if resident_ml:
+        from gridgcn_torch.parallel.resident_ml import (
+            make_resident_ml_forward, resident_ml_seg_predict)
+        fwd_resident = make_resident_ml_forward(cfg, mesh)
+        predict_resident = resident_ml_seg_predict
+    elif resident:
+        from gridgcn_torch.parallel.resident import (
+            make_resident_forward, resident_seg_predict)
+        fwd_resident = make_resident_forward(cfg, mesh)
+        predict_resident = resident_seg_predict
+
+    for s in range(val_ds.size):
+        xyz = val_ds.points[s]
+        mask = np.ones(xyz.shape[0], bool)
+        feat = None if val_ds.features is None else val_ds.features[s]
+        if fwd_resident is not None:
+            # the votes ride inside the tier, the partition made once
+            acc = votes * predict_resident(
+                cfg, state.model, xyz, mask, mesh,
+                rng=jaxrng.PRNGKey(1000 * s), fwd=fwd_resident, votes=votes,
+                feat=feat)
+        else:
+            acc = _whole_scene_votes(state.model, cfg, xyz, mask, feat,
+                                     mesh, votes, s)
+        score(acc, xyz, val_ds.labels[s], mask)
     s_ = summarize_confusion(cm)
     sv = summarize_confusion(torch.as_tensor(vox_cm, dtype=torch.float32))
     s_["voxel_acc"] = sv["overall_acc"]
@@ -221,6 +285,36 @@ def evaluate_whole_scenes(ckpt_dir: str, votes: int = 3, log_path=None,
             voxel_acc=float(sv["overall_acc"]))
     log.close()
     return s_
+
+
+@torch.no_grad()
+@full_fp32()
+def _whole_scene_votes(model, cfg, xyz, mask, feat, mesh, votes: int,
+                       s: int) -> np.ndarray:
+    """Scene s's logits [N, C] summed over the votes (keys
+    PRNGKey(1000·s + v)), on this device or tier-1 sharded over the
+    mesh."""
+    dev = next(model.parameters()).device
+    C = cfg.model.num_classes
+    if mesh is not None:      # vote-invariant partition geometry
+        halo = required_halo(cfg, float(np.ptp(xyz, axis=0).max()))
+        capacity = suggest_capacity(xyz, mask, mesh.size, halo)
+    acc = None
+    for v in range(votes):
+        key = jaxrng.PRNGKey(1000 * s + v)
+        if mesh is not None:
+            lg = sharded_scene_apply(
+                _slab_forward(model, key, feat is not None), xyz, mask,
+                mesh, halo=halo, capacity=capacity, num_outputs=C,
+                feat=feat)
+        else:
+            lg = model(torch.as_tensor(xyz[None], device=dev),
+                       None if feat is None
+                       else torch.as_tensor(feat[None], device=dev),
+                       torch.as_tensor(mask[None], device=dev),
+                       key)[0].float().cpu().numpy()
+        acc = lg if acc is None else acc + lg
+    return acc
 
 
 def _slab_forward(model, key, with_feat: bool):
@@ -341,11 +435,16 @@ def main(argv=None):
                         "eval step, or (--whole-scene) each scene "
                         "spatially sharded, tier 1")
     p.add_argument("--resident", action="store_true",
-                   help="fully-resident sharding (not ported)")
+                   help="with --mesh --whole-scene: tier 2 (the dense level "
+                        "sharded, the coarse pyramid replicated after one "
+                        "all-gather) instead of per-slab re-runs")
     p.add_argument("--resident-ml", action="store_true",
-                   help="multi-layer feature-halo sharding (not ported)")
+                   help="with --mesh --whole-scene: tier 3 (every level "
+                        "sharded, boundary halos exchanged between ring "
+                        "neighbours)")
     p.add_argument("--scene-batch", type=int, default=0,
-                   help="scenes evaluated concurrently (not ported)")
+                   help="with --mesh N --resident-ml: B scenes at a time on "
+                        "a B x N/B mesh (B must divide N)")
     p.add_argument("--log", default=None)
     p.add_argument("--target", default=None,
                    choices=["modelnet40", "s3dis", "scannet"],
@@ -355,8 +454,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.votes is not None and args.votes < 1:
         p.error(f"--votes must be >= 1, got {args.votes}")
-    if args.resident or args.resident_ml or args.scene_batch:
-        p.error(UNPORTED)
     if args.s3dis_rooms:
         s = evaluate_s3dis_rooms(args.ckpt_dir,
                                  votes=1 if args.votes is None else args.votes,
@@ -367,7 +464,10 @@ def main(argv=None):
                                   log_path=args.log,
                                   voxel_size=args.voxel_size,
                                   device=args.device,
-                                  mesh_devices=args.mesh)
+                                  mesh_devices=args.mesh,
+                                  resident=args.resident,
+                                  resident_ml=args.resident_ml,
+                                  scene_batch=args.scene_batch)
     else:
         s = evaluate(args.ckpt_dir, latency=args.latency,
                      votes=1 if args.votes is None else args.votes,

@@ -2,6 +2,8 @@
 
     python -m gridgcn_torch.train.train --preset scannet_seg \
         [--device cuda|cpu] [--mesh N] \
+        [--spatial resident|resident-ml [--spatial-capacity C]
+         [--ghost-cap 0|H|auto] [--scene-batch B]] \
         [--auto-capacity off|propose|apply] \
         [--log FILE] [--tensorboard DIR] [key=value ...]
 
@@ -18,8 +20,10 @@ unless `--device cpu` is given. `--mesh N` trains data-parallel over N
 ranks (`parallel.dp`; N worker processes on this host, or the processes of
 a `torchrun` launch): each rank takes its rows of the same global batch,
 the step is the single-device step on the global batch, and only rank 0
-logs and checkpoints. The spatially sharded flags (`--spatial`, ...) are
-parsed and refused: those tiers are not ported yet.
+logs and checkpoints. `--spatial resident|resident-ml` with `--mesh N`
+trains on whole scenes sharded over the N ranks (`train_spatial`, the
+resident tiers of `parallel.spatial_train`); `--scene-batch B` trains B
+scenes per step on a B × N/B mesh (tier 3).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.distributed as dist
 from gridgcn_torch.configs import presets
 from gridgcn_torch.configs.base import (
     Config, apply_overrides, parse_cli_overrides, to_json)
+from gridgcn_torch.data.augment import augment_batch
 from gridgcn_torch.data.pipeline import Prefetcher, make_dataset, to_device
 from gridgcn_torch.models.build import init_model
 from gridgcn_torch.parallel.launch import launch
@@ -51,10 +56,6 @@ from gridgcn_torch.utils.checkpoint import CheckpointManager
 from gridgcn_torch.utils.debug import (
     audit_layer0_capacity, propose_layer0_capacity)
 from gridgcn_torch.utils.logging import MetricLogger
-
-UNPORTED = ("the spatially sharded training tiers are not ported yet "
-            "(ROADMAP queue 1, item 7: the resident tiers)")
-
 
 def _log_capacity(log: MetricLogger, cfg: Config, ds,
                   auto_capacity: str = "off") -> Config:
@@ -203,6 +204,183 @@ def _train_worker(*args):
     train(*args)
 
 
+def train_spatial(cfg: Config, mesh_devices: int,
+                  log_path: str | None = None, capacity: int = 0,
+                  tier: str = "resident",
+                  tensorboard_dir: str | None = None, ghost_cap="0",
+                  auto_capacity: str = "off", scene_batch: int = 0,
+                  device="cuda"):
+    """Spatially sharded training on whole scenes over mesh_devices ranks
+    of `device` (the JAX package's `train_spatial`): each step trains one
+    whole scene cut into slabs over the mesh with the tier-2
+    (`tier="resident"`) or tier-3 (`"resident_ml"`) forward; with
+    scene_batch B > 1 (tier 3, B dividing the mesh) B scenes per step on
+    a B × mesh/B mesh, the last incomplete group of an epoch dropped. The
+    scenes are augmented whole on the CPU before they are cut, under key
+    fold_in(fold_in(PRNGKey(seed + 71717), epoch), first scene). capacity:
+    the per-shard points (0: 2N/D rounded up to 256, at most N; a scene
+    that overflows it runs at N). ghost_cap: tier 3's ghost rows per face,
+    an int ("0": the full share) or "auto" (calibrated on up to 8 training
+    scenes, logged as a `ghost_cap` record). There is no eval. Outside a
+    process group it starts the ranks and returns None; inside one, this
+    rank's state."""
+    if cfg.model.task != "seg":
+        raise ValueError("--spatial training is a segmentation protocol")
+    if scene_batch and scene_batch > 1:
+        if tier != "resident_ml":
+            raise ValueError("--scene-batch spatial training is a tier-3 "
+                             "(resident-ml) protocol")
+        if mesh_devices % scene_batch:
+            raise ValueError(f"--scene-batch {scene_batch} must divide "
+                             f"--mesh {mesh_devices}")
+    else:
+        scene_batch = 0
+    if not dist.is_initialized():
+        return launch(_train_spatial_worker,
+                      pmesh.mesh_devices(device, mesh_devices), cfg,
+                      mesh_devices, log_path, capacity, tier,
+                      tensorboard_dir, ghost_cap, auto_capacity, scene_batch,
+                      device)
+    from gridgcn_torch.parallel.resident_ml import calibrate_ghost_cap
+    from gridgcn_torch.parallel.spatial_train import (
+        make_spatial_train_step, shard_scene_batch, shard_scene_batches)
+
+    devs = pmesh.mesh_devices(device, mesh_devices)
+    if scene_batch:
+        mesh = pmesh.make_mesh2d(scene_batch, mesh_devices // scene_batch,
+                                 devs)
+        D = mesh_devices // scene_batch      # slabs per scene
+    else:
+        mesh = pmesh.make_mesh(mesh_devices, devs)
+        D = mesh_devices
+    lead = mesh.rank == 0
+    log = (MetricLogger(log_path, tensorboard_dir=tensorboard_dir) if lead
+           else MetricLogger(stream=io.StringIO()))
+    log.log("config", name=cfg.name, config=to_json(cfg), spatial=True)
+
+    train_ds = make_dataset(cfg.data, "train", cfg.model.num_classes,
+                            cfg.model.task)
+    cfg = _log_capacity(log, cfg, train_ds, auto_capacity)
+    # optimizer steps per epoch: one per scene, or one per scene group
+    # (the JAX package sizes the scene-batched schedule by the scene
+    # count, B times too many steps; this is the count the loop takes)
+    opt_steps_per_epoch = (train_ds.size // scene_batch if scene_batch
+                           else train_ds.size)
+    steps_per_epoch = cfg.train.steps_per_epoch or opt_steps_per_epoch
+    model, state_dict = init_model(
+        cfg.model, torch.Generator().manual_seed(cfg.train.seed))
+    state = create_train_state(cfg, model, state_dict, steps_per_epoch,
+                               device=mesh.device)
+    N = cfg.data.num_points
+    if not capacity:
+        capacity = min(N, ((2 * N // D + 255) // 256) * 256)
+
+    class_weights = None
+    if cfg.train.class_weighting:
+        class_weights = class_weights_from_dataset(
+            train_ds.labels, cfg.model.num_classes,
+            ignore_label=cfg.model.ignore_label)
+    caps = 0
+    if str(ghost_cap) == "auto" and tier == "resident_ml":
+        per_scene = [calibrate_ghost_cap(cfg, train_ds.points[i],
+                                         np.ones(N, bool), D)
+                     for i in range(min(train_ds.size, 8))]
+        caps = tuple(int(max(c)) for c in zip(*per_scene))
+        log.log("ghost_cap", caps=list(caps))
+    elif str(ghost_cap) not in ("0", "auto"):
+        caps = int(ghost_cap)
+    step = make_spatial_train_step(
+        cfg, mesh, class_weights=class_weights, tier=tier, ghost_cap=caps,
+        batch_axis=pmesh.DATA_AXIS if scene_batch else None)
+
+    if not lead:          # rank 0 writes the directory's config first
+        mesh.sum(torch.zeros(1, device=mesh.device))
+    ckpt = CheckpointManager(cfg.train.ckpt_dir, cfg, keep=cfg.train.keep_ckpts)
+    if lead:
+        mesh.sum(torch.zeros(1, device=mesh.device))
+    rng = jaxrng.PRNGKey(cfg.train.seed)
+    restored = ckpt.restore(state, rng)
+    start_epoch = 0
+    if restored is not None:
+        state, rng = restored["state"], restored.get("rng", rng)
+        start_epoch = state.step // max(opt_steps_per_epoch, 1)
+        log.log("restore", step=state.step, epoch=start_epoch)
+
+    aug_key = jaxrng.PRNGKey(int(cfg.train.seed) + 71_717)
+    for epoch in range(start_epoch, cfg.train.epochs):
+        t_ep = time.time()
+        losses, accs, overflows = [], [], []
+        order = np.random.default_rng(cfg.train.seed + epoch).permutation(
+            train_ds.size)
+        B = scene_batch or 1
+        groups = [order[i:i + B] for i in range(0, len(order) - B + 1, B)]
+        for grp in groups:
+            xyz = np.stack([train_ds.points[i] for i in grp])
+            labels = np.stack([train_ds.labels[i] for i in grp])
+            feat = (np.stack([train_ds.features[i] for i in grp])
+                    if train_ds.features is not None else None)
+            masks = np.ones(xyz.shape[:2], bool)
+            if cfg.data.augment:
+                # the whole scene on the CPU, before it is cut: the
+                # rotation precedes the slab cut, dropout rides the mask
+                ax, am, af = augment_batch(
+                    torch.as_tensor(xyz), torch.as_tensor(masks),
+                    jaxrng.fold_in(jaxrng.fold_in(aug_key, epoch),
+                                   int(grp[0])),
+                    cfg.data,
+                    None if feat is None else torch.as_tensor(feat))
+                xyz, masks = ax.numpy(), am.numpy()
+                feat = None if af is None else af.numpy()
+            for cap in (capacity, N):     # a dense slab overflowing: N
+                try:
+                    batch = (shard_scene_batches(cfg, xyz, labels, masks,
+                                                 mesh, cap, feats=feat)
+                             if scene_batch else
+                             shard_scene_batch(cfg, xyz[0], labels[0],
+                                               masks[0], mesh, cap,
+                                               feat=None if feat is None
+                                               else feat[0]))
+                    break
+                except ValueError:
+                    if cap == N:
+                        raise
+            state, m = step(state, batch, rng)
+            losses.append(m["loss"])
+            accs.append(m["acc"])
+            if "ghost_overflow" in m:
+                overflows.append(m["ghost_overflow"])
+            if (cfg.train.log_every > 0
+                    and state.step % cfg.train.log_every == 0):
+                log.log("train_step", step=state.step,
+                        loss=float(m["loss"]), acc=float(m["acc"]),
+                        grad_norm=float(m["grad_norm"]))
+        n_over = int(sum(int(o) for o in overflows))
+        if n_over:
+            warnings.warn(
+                f"resident-ml training: {n_over} boundary rows overflowed "
+                f"the per-face ghost buffers this epoch (ghost_cap="
+                f"{caps!r}); raise --ghost-cap or re-run calibration with "
+                f"a higher safety factor", RuntimeWarning, stacklevel=2)
+        log.log("epoch", epoch=epoch,
+                loss=float(np.mean(torch.stack(losses).cpu().numpy())),
+                acc=float(np.mean(torch.stack(accs).cpu().numpy())),
+                ghost_overflow=n_over,
+                points_per_sec=train_ds.size * N
+                / max(time.time() - t_ep, 1e-9))
+        if lead and ((cfg.train.ckpt_every > 0
+                      and (epoch + 1) % cfg.train.ckpt_every == 0)
+                     or epoch == cfg.train.epochs - 1):
+            ckpt.save(state.step, state, rng)
+    ckpt.wait()
+    log.close()
+    return state
+
+
+def _train_spatial_worker(*args):
+    """One rank of a launched `train_spatial`."""
+    train_spatial(*args)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="gridgcn_torch trainer")
     p.add_argument("--preset", default="modelnet40_full",
@@ -214,13 +392,17 @@ def main(argv=None):
                         "(N worker processes, or the ranks of torchrun)")
     p.add_argument("--spatial", choices=["resident", "resident-ml"],
                    default=None,
-                   help="spatially sharded training (not ported)")
+                   help="with --mesh N: train on whole scenes, each cut "
+                        "into slabs over the N ranks (tier 2 or tier 3)")
     p.add_argument("--spatial-capacity", type=int, default=0,
-                   help="per-shard point capacity (not ported)")
+                   help="per-shard point capacity (0 = auto)")
     p.add_argument("--ghost-cap", default="0",
-                   help="tier-3 ghost buffer rows (not ported)")
+                   help="tier-3 per-face ghost buffer rows: an int, 0 = "
+                        "the full share, or 'auto' = calibrated on the "
+                        "training scenes")
     p.add_argument("--scene-batch", type=int, default=0,
-                   help="whole scenes per spatial step (not ported)")
+                   help="with --spatial resident-ml: B whole scenes per "
+                        "step on a B x N/B mesh")
     p.add_argument("--auto-capacity", choices=["off", "propose", "apply"],
                    default="off",
                    help="step-0 layer-0 capacity audit action when the "
@@ -233,16 +415,24 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*",
                    help="config overrides, e.g. train.lr=3e-4")
     args = p.parse_args(argv)
-    if (args.spatial or args.spatial_capacity or args.ghost_cap != "0"
-            or args.scene_batch):
-        p.error(UNPORTED)
 
     cfg = presets.get(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, parse_cli_overrides(args.overrides))
-    train(cfg, log_path=args.log, tensorboard_dir=args.tensorboard,
-          auto_capacity=args.auto_capacity, device=args.device,
-          mesh_devices=args.mesh)
+    if args.spatial:
+        if not args.mesh:
+            p.error("--spatial requires --mesh N")
+        train_spatial(cfg, mesh_devices=args.mesh, log_path=args.log,
+                      capacity=args.spatial_capacity,
+                      tier=args.spatial.replace("-", "_"),
+                      tensorboard_dir=args.tensorboard,
+                      ghost_cap=args.ghost_cap,
+                      auto_capacity=args.auto_capacity,
+                      scene_batch=args.scene_batch, device=args.device)
+    else:
+        train(cfg, log_path=args.log, tensorboard_dir=args.tensorboard,
+              auto_capacity=args.auto_capacity, device=args.device,
+              mesh_devices=args.mesh)
 
 
 if __name__ == "__main__":

@@ -300,29 +300,39 @@ def test_accuracy_targets_are_a_copy():
     assert a == b
 
 
-@pytest.mark.parametrize("argv", [
-    ["--spatial", "resident", "--mesh", "2"],
-    ["--scene-batch", "2"], ["--ghost-cap", "auto"],
-    ["--spatial-capacity", "4096"]])
-def test_train_cli_refuses_unported_flags(argv, capsys):
-    """The resident tiers' flags (`--mesh` runs:
-    `tests/test_torch_cli_mesh.py`)."""
-    with pytest.raises(SystemExit) as e:
-        train.main(argv)
-    assert e.value.code == 2
-    assert "item 7" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,match", [
+    (["--spatial", "resident"], None),
+    (["--preset", "synthetic_tiny_seg", "--spatial", "resident", "--mesh",
+      "2", "--scene-batch", "2"], "tier-3"),
+    (["--preset", "synthetic_tiny_seg", "--spatial", "resident-ml",
+      "--mesh", "2", "--scene-batch", "3"], "must divide"),
+    (["--spatial", "resident", "--mesh", "2"], "segmentation protocol")],
+    ids=[f"argv{i}" for i in range(4)])
+def test_train_cli_refuses_unported_flags(argv, match, capsys):
+    """The spatial flags' misuses are refused before any worker starts, as
+    the JAX package refuses them: --spatial without --mesh (exit 2),
+    --scene-batch with tier 2 or a B that does not divide the mesh, a
+    classification preset (their runs: `tests/test_torch_cli_spatial.py`)."""
+    if match is None:
+        with pytest.raises(SystemExit) as e:
+            train.main(argv)
+        assert e.value.code == 2
+        assert "--spatial requires --mesh" in capsys.readouterr().err
+    else:
+        with pytest.raises(ValueError, match=match):
+            train.main(argv)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--resident"], ["--resident-ml"],
-    ["--scene-batch", "2", "--whole-scene"]])
-def test_evaluate_cli_refuses_unported_flags(argv, capsys):
-    """The resident tiers' flags (`--mesh` runs:
-    `tests/test_torch_cli_mesh.py`)."""
-    with pytest.raises(SystemExit) as e:
+@pytest.mark.parametrize("argv,match", [
+    (["--resident", "--whole-scene"], "require --mesh"),
+    (["--resident-ml", "--whole-scene"], "require --mesh"),
+    (["--scene-batch", "2", "--whole-scene"], "requires --resident-ml")],
+    ids=[f"argv{i}" for i in range(3)])
+def test_evaluate_cli_refuses_unported_flags(argv, match):
+    """The resident tiers' misuses are refused before any checkpoint is
+    read (their runs: `tests/test_torch_cli_spatial.py`)."""
+    with pytest.raises(ValueError, match=match):
         evaluate.main(["--ckpt-dir", "checkpoints", *argv])
-    assert e.value.code == 2
-    assert "item 7" in capsys.readouterr().err
 
 
 def test_clis_default_to_cuda_and_raise_without_it(runs, tmp_path,

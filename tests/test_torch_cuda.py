@@ -317,3 +317,20 @@ def test_seg_train_step_on_cuda_matches_the_cpu(cuda):
     assert ge["grad_norm"] <= 1e-5 and ge["grad"] <= 1e-4, ge
     assert ga["grad_norm"] <= 3e-3 and ga["grad"] <= 3e-2, ga
     assert ga["undetermined"] <= 0.7, ga
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 16])
+@pytest.mark.parametrize("nq", [1000, 70000])
+def test_kernels_at_other_list_lengths(cuda, k, nq):
+    """Each list length has a build of its own (`-DKNN_K=k`): knn3_exact
+    bit for bit its plain version, knn3_mxu the same validity and, where
+    its neighbours agree with the plain version's, d² within 1e-3; both
+    tilings of each kernel (few and many queries)."""
+    args = _inputs(cuda, nq, 3000, 40 + k)
+    _bit_equal(knn.knn3_exact(*args, k=k), knn.knn3_exact_ref(*args, k=k))
+    dm, im, vm = knn.knn3_mxu(*args, k=k)
+    dr, ir, vr = knn.knn3_mxu_ref(*args, k=k)
+    assert dm.shape == (nq, k) and torch.equal(vm, vr)
+    same = (im == ir) & vm
+    assert same.sum() >= 0.999 * vm.sum()
+    assert (dm - dr).abs()[same].max() <= 1e-3

@@ -195,3 +195,115 @@ def test_cpu_tensors_take_the_plain_versions():
         for a, b in zip(fn(q, qm, s, sm), ref(q, qm, s, sm)):
             assert torch.equal(a, b)
     assert (tknn.knn3_mxu.launches, tknn.knn3_exact.launches) == before
+
+
+def _jax_k(fn, q, qm, s, sm, k):
+    out = fn(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(s),
+             jnp.asarray(sm), k=k, interpret=True)
+    return [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_exact_ref_any_k_is_bit_exact(k):
+    """The exact plain version for k ≠ 3 against `flash_knn(k=k)` in
+    interpret mode, on the 2⁻⁸ grid (exact arithmetic): distances,
+    indices and validity bit for bit, masked rows included."""
+    rng = np.random.default_rng(10 + k)
+    q = _cloud(rng, 300, 0, 1, 2.0 ** -8)
+    s = _cloud(rng, 200, 0, 1, 2.0 ** -8)
+    qm, sm = np.arange(300) < 280, np.arange(200) < 180
+    dj, ij, vj = _jax_k(flash_knn, q, qm, s, sm, k)
+    dt, it, vt = [o.numpy() for o in tknn.knn3_exact(
+        torch.from_numpy(q), torch.from_numpy(qm), torch.from_numpy(s),
+        torch.from_numpy(sm), k=k)]
+    assert dt.shape == (300, k)
+    np.testing.assert_array_equal(dj.view(np.int32), dt.view(np.int32))
+    np.testing.assert_array_equal(ij, it)
+    np.testing.assert_array_equal(vj, vt)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_mxu_ref_any_k_meets_pallas_gates(k):
+    """The mxu plain version for k ≠ 3 against `flash_knn(k=k)` (exact):
+    recall ≥ 0.99, top-1 ≥ 0.99, |Δd²| < 2e-2 on matching neighbours, the
+    masked supports never winning; and against `flash_knn_mxu(k=k)`
+    (whose lane fold can lose a j-th neighbour) the same nearest one."""
+    rng = np.random.default_rng(20 + k)
+    q = _cloud(rng, 512, -4, 9)
+    s = _cloud(rng, 700, -4, 9)
+    qm, sm = np.ones(512, bool), np.ones(700, bool)
+    sm[-7:] = False
+    de, ie, ve = _jax_k(flash_knn, q, qm, s, sm, k)
+    dm, im, vm = [o.numpy() for o in tknn.knn3_mxu(
+        torch.from_numpy(q), torch.from_numpy(qm), torch.from_numpy(s),
+        torch.from_numpy(sm), k=k)]
+    assert dm.shape == (512, k)
+    np.testing.assert_array_equal(ve, vm)
+    assert np.all(im < 700 - 7)
+    recall = np.mean([len(set(ie[i]) & set(im[i])) / k for i in range(512)])
+    assert recall >= 0.99, recall
+    assert (ie[:, 0] == im[:, 0]).mean() >= 0.99
+    assert np.abs(dm - de)[ie == im].max() < 2e-2
+    _, ij, _ = _jax_k(flash_knn_mxu, q, qm, s, sm, k)
+    assert (ij[:, 0] == im[:, 0]).mean() >= 0.99
+
+
+def test_k_above_the_kernels_limit_raises():
+    """The kernels are instantiated for k ≤ MAX_K (16); a longer list is
+    refused with the limit named, on either device; the plain versions
+    take it."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(_cloud(rng, 40, 0, 1))
+    s = torch.from_numpy(_cloud(rng, 200, 0, 1))
+    qm, sm = torch.ones(40, dtype=torch.bool), torch.ones(200, dtype=torch.bool)
+    for fn in (tknn.knn3_mxu, tknn.knn3_exact):
+        with pytest.raises(ValueError, match="k <= 16"):
+            fn(q, qm, s, sm, k=17)
+        with pytest.raises(ValueError, match="k <= 16"):
+            fn(q, qm, s, sm, k=0)
+    with pytest.raises(ValueError, match="MAX_K"):
+        tknn.flash_three_nn(q[None], qm[None], s[None], sm[None], k=17)
+    assert tknn.knn3_exact_ref(q, qm, s, sm, 20)[1].shape == (40, 20)
+    assert tknn.knn3_mxu_ref(q, qm, s, sm, 20)[1].shape == (40, 20)
+
+
+def test_k_interp_4_pallas_forward_matches_jax():
+    """synthetic_tiny_seg with k_interp=4 and method="pallas" in every
+    decoder stage: the port's served forward (`flash_three_nn(k=4)`)
+    against JAX's (the Pallas kernel in interpret mode): argmax alike
+    everywhere and logits within 1e-3 of their range. Supports of ≤ 128
+    points near the origin: the TPU kernel's lane fold cannot collide,
+    so both pick the same 4 neighbours; the two split-bf16 products sum
+    d² + 1 in another order (an f32 ulp of 1, 1.2e-7), which the weights
+    1/(d² + 1e-8) amplify where a query lies near a support (ROADMAP §3,
+    "the 3-NN weights amplify d²")."""
+    import dataclasses
+
+    import jax
+
+    from gridgcn_tpu.configs import presets as jpresets
+    from gridgcn_tpu.models.build import build_model as jbuild
+    from gridgcn_torch.api import Predictor
+    from gridgcn_torch.utils.convert import convert_flax_variables
+    from tests.test_torch_models import _random_variables, to_port
+
+    cfg = jpresets.get("synthetic_tiny_seg")
+    ups = tuple(dataclasses.replace(u, method="pallas", k_interp=4)
+                for u in cfg.model.up_layers)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, up_layers=ups))
+    xyz = np.random.default_rng(2).uniform(-1, 1, (1, 256, 3)).astype(
+        np.float32)
+    mask = np.ones((1, 256), bool)
+    model = jbuild(cfg.model)
+    v = _random_variables(model, jnp.asarray(xyz), None, jnp.asarray(mask))
+    key = jax.random.PRNGKey(4)
+    want = np.asarray(jax.jit(lambda x, m: model.apply(
+        v, x, None, m, rngs={"cagq": key}))(jnp.asarray(xyz),
+                                            jnp.asarray(mask)))[0]
+    model_cfg = dataclasses.replace(cfg.model, fold_bn=False)
+    got = Predictor(to_port(dataclasses.replace(cfg, model=model_cfg)),
+                    convert_flax_variables(v), device="cpu")(
+        xyz[0], rng=np.asarray(key))
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.ptp(want))

@@ -106,9 +106,12 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_entry_points_raise():
-    """What stays unported raises: the resident tiers (`predict_scenes`,
-    `predict_scene` on a mesh). Mesh serving runs inside a process group
-    (`tests/test_torch_dp.py`); outside one it says how to start one."""
+    """The resident tiers' misuses raise: `predict_scenes` without a mesh,
+    an unknown tier, a 2-D mesh outside a process group. Mesh serving runs
+    inside a process group (`tests/test_torch_dp.py`); outside one it says
+    how to start one. A one-rank mesh needs no group: predict_scene
+    shards the scene over it with tier 3 (`tests/test_torch_resident.py`
+    holds the tiers against JAX's)."""
     from gridgcn_torch import api
     from gridgcn_torch.models.build import init_model
     from gridgcn_torch.parallel.mesh import Mesh
@@ -118,14 +121,18 @@ def test_unported_entry_points_raise():
     with pytest.raises(RuntimeError, match="parallel.launch or torchrun"):
         api.Predictor(cfg, sd, device="cpu", mesh=2)
     pred = api.Predictor(cfg, sd, device="cpu")
-    with pytest.raises(NotImplementedError, match="resident"):
+    with pytest.raises(ValueError, match="needs a mesh Predictor"):
         pred.predict_scenes(np.zeros((2, 256, 3), np.float32))
     with pytest.raises(ValueError, match="spatial tier"):
         pred.predict_scene(np.zeros((256, 3), np.float32), spatial="ring")
     one = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"))
     meshed = api.Predictor(cfg, sd, device="cpu", mesh=one)
-    with pytest.raises(NotImplementedError, match="resident"):
-        meshed.predict_scene(np.zeros((256, 3), np.float32))
+    xyz = np.random.default_rng(0).uniform(0, 4, (256, 3)).astype(np.float32)
+    out = meshed.predict_scene(xyz)
+    assert out.shape == (256, cfg.model.num_classes)
+    assert np.isfinite(out).all() and (np.abs(out).sum(-1) > 0).all()
+    with pytest.raises(RuntimeError, match="no process group"):
+        meshed.predict_scenes(xyz[None])
 
 
 def test_parallel_export_and_fps_modules_are_in_the_standalone_check():
@@ -134,6 +141,9 @@ def test_parallel_export_and_fps_modules_are_in_the_standalone_check():
     for m in ("gridgcn_torch.parallel.mesh", "gridgcn_torch.parallel.dp",
               "gridgcn_torch.parallel.launch",
               "gridgcn_torch.parallel.spatial", "gridgcn_torch.export",
+              "gridgcn_torch.parallel.resident",
+              "gridgcn_torch.parallel.resident_ml",
+              "gridgcn_torch.parallel.spatial_train",
               "gridgcn_torch.ops.fps", "gridgcn_torch.utils.precision"):
         assert m in MODULES, m
 
