@@ -84,12 +84,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      their plain versions on every decoder call of these tiers; tier 3 at
      world 1 (NCCL): ms per scene beside the single device, ms per train
      step, train_spatial for 2 epochs of 4 scenes;
- 19. one JSON line of kernels, the card line, and the final JSON line.
+ 19. the communication audit: each rank's ring-shift bytes in the
+     world-2 tier-3 forward of phase 18 equal to the audit's; its
+     projections at 2, 4 and 8 ranks from the card's anchors (phase 18's
+     single-device request and tier-3 ghost tax, the kernel phase's
+     knn3_mxu ms on the four decoder calls);
+ 20. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
+     sharing cuda:0, with its reference-format lines;
+ 21. CAGQ's coord_match and coord_payload gathers on each of the whole
+     scene's four layers: every field bit for bit the packed path's, and
+     layer 0 against the CPU;
+ 22. one JSON line of kernels, the card line, and the final JSON line.
 Each phase prints its seconds.
 The kernel phase also holds both kernels against their plain versions on
 the four decoder calls of one augmented training batch, and at the list
-lengths k = 1, 8 and 16 (the kernels are built once per k used, these
-four side by side).
+lengths k = 1, 8 and 16 (the register kernels, built once per k used)
+and k = 32 and 128 (the list kernels, one build for 17..128) on the main
+path's four decoder calls; these builds start side by side.
 --profile adds torch.profiler tables of one whole-scene request, of one
 classifier request and of one training step, with their CUDA launch counts.
 """
@@ -108,12 +119,13 @@ import time
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s,
 # bf16 tensor-core and fp32 CUDA-core operations/s
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
-FP32_OPS_PER_S = 67e12
+from gridgcn_torch.utils.hw import (
+    BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S)
 # the kNN list lengths other than the decoder's 3 that the kernel phase
-# holds (any_k_phase): the shortest, a middle and the longest built
+# holds (any_k_phase): the register kernels' shortest, a middle and their
+# longest, then two of the list kernels' (up to the reference's 128)
 ANY_K = (1, 8, 16)
+LONG_K = (32, 128)
 
 
 def card_line() -> str:
@@ -225,9 +237,10 @@ def kernel_phase(torch, knn, cases):
     augmented training batch's), "ragged" or "grid" (knn3_mxu bit exact),
     or a resident tier's call (resident_phase); the tighter gates hold at
     the largest case; returns per-kernel totals over the main cases (one
-    whole-scene forward's four decoder calls)."""
+    whole-scene forward's four decoder calls), with each main call's ms
+    in `stage_ms` (coarsest first)."""
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
+                   max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0, stage_ms=[])
            for k in ("knn3_mxu", "knn3_exact")}
     largest = max(a[0].shape[0] * a[2].shape[0] for a, _ in cases)
     for args, kind in cases:
@@ -306,6 +319,7 @@ def kernel_phase(torch, knn, cases):
                   f"max_abs_err {errs[k]:.3g}")
             tot[k]["max_abs_err"] = max(tot[k]["max_abs_err"], errs[k])
             if kind == "main":
+                tot[k]["stage_ms"].append(times[k])
                 tot[k]["ms"] += times[k]
                 tot[k]["plain_ms"] += plain[k]
                 tot[k]["library_ms"] += library
@@ -373,6 +387,8 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     torch.cuda.reset_peak_memory_stats()
     knn.knn3_mxu.launches = 0
     knn.knn3_exact.launches = 0
+    knn.knn3_mxu.launches_by_k.clear()
+    knn.knn3_exact.launches_by_k.clear()
     knn.mxu_pack_support.launches = 0
     lat, wall = [], []
     for xyz in scenes:
@@ -390,10 +406,11 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     voted = pred.predict_scene(scenes[0], votes=2,
                                rng=jaxrng.PRNGKey(0))
     assert voted.shape == (81920, 21) and np.isfinite(voted).all()
-    launches = {"knn3_mxu": knn.knn3_mxu.launches,
-                "knn3_exact": knn.knn3_exact.launches}
+    launches = {"knn3_mxu": dict(knn.knn3_mxu.launches_by_k),
+                "knn3_exact": dict(knn.knn3_exact.launches_by_k)}
     forwards = len(scenes) + 2
-    assert launches["knn3_mxu"] == 4 * forwards, launches
+    assert knn.knn3_mxu.launches == 4 * forwards, launches
+    assert launches["knn3_mxu"] == {3: 4 * forwards}, launches
     assert knn.mxu_pack_support.launches == 4 * forwards
     peak = torch.cuda.max_memory_allocated()
     print(f"serving: {forwards} forwards, launches {launches}; per-scene "
@@ -1806,23 +1823,29 @@ def dp_phase(torch, np, knn, presets, init_model, build_model, steps,
     assert t1.shape == (81920, 21) and np.isfinite(t1).all()
 
 
-def any_k_phase(torch, knn, args):
-    """Both kernels at list lengths other than the decoder's 3 (ANY_K) on
-    one ragged, masked shape: knn3_exact bit for bit its plain version,
-    knn3_mxu at the kernel phase's gates against its plain version and
-    against knn3_exact; with CUDA-event times."""
-    q, qm, s, sm = args
-    for k in ANY_K:
+def list_length_record(torch, knn, k, cases, main):
+    """Both kernels at list length k on each case (args): knn3_exact bit
+    for bit its plain version, knn3_mxu at the kernel phase's any-k gates
+    against its plain version (agree 0.999, |d| 1e-3) and against
+    knn3_exact (recall 0.97, top-1 0.99); with CUDA-event times. Returns
+    {name: record} summed over the cases for which main(args) is true,
+    with the kernels-line keys (times, bounds, library call)."""
+    rec = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
+           for n in ("knn3_mxu", "knn3_exact")}
+    for args in cases:
+        q, qm, s, sm = args
+        nq, ns = q.shape[0], s.shape[0]
         de, ie, ve = knn.knn3_exact(*args, k=k)
         dx, ix, vx = knn.knn3_exact_ref(*args, k=k)
         dm, im, vm = knn.knn3_mxu(*args, k=k)
         dr, ir, vr = knn.knn3_mxu_ref(*args, k=k)
         torch.cuda.synchronize()
-        assert de.shape == (q.shape[0], k)
+        assert de.shape == (nq, k)
         assert torch.equal(de.view(torch.int32), dx.view(torch.int32)) \
             and torch.equal(ie, ix) and torch.equal(ve, vx), \
-            f"knn3_exact k={k} differs from its plain version"
-        assert torch.equal(vm, vr) and torch.equal(vm, ve), k
+            f"knn3_exact k={k} differs from its plain version at {nq}x{ns}"
+        assert torch.equal(vm, vr) and torch.equal(vm, ve), (k, nq, ns)
         same = (im == ir) & vm
         agree = same.sum().item() / max(vm.sum().item(), 1)
         err = (dm - dr).abs()[same].max().item() if same.any() else 0.0
@@ -1830,21 +1853,64 @@ def any_k_phase(torch, knn, args):
         hit = (im[rows][:, :, None] == ie[rows][:, None, :]).any(-1)
         recall = hit[ve[rows]].float().mean().item()
         top1 = (im[rows, 0] == ie[rows, 0]).float().mean().item()
-        assert agree >= 0.999 and err <= 1e-3, (k, agree, err)
-        assert recall >= 0.97 and top1 >= 0.99, (k, recall, top1)
-        ms = {n: cuda_ms(torch, lambda f=getattr(knn, n): f(*args, k=k), 10)
-              for n in ("knn3_mxu", "knn3_exact")}
-        print(f"kernel k={k} {q.shape[0]}x{s.shape[0]} ragged: knn3_exact "
-              f"bit for bit its plain version, ms {ms['knn3_exact']:.4f}; "
-              f"knn3_mxu vs plain agree {agree:.6f} err {err:.3g}, vs "
-              f"exact recall {recall:.5f} top1 {top1:.5f}, ms "
-              f"{ms['knn3_mxu']:.4f}")
+        assert agree >= 0.999 and err <= 1e-3, (k, nq, ns, agree, err)
+        assert recall >= 0.97 and top1 >= 0.99, (k, nq, ns, recall, top1)
+        pairs = nq * ns
+        iters = 3 if pairs > 1e8 else 10
+        ms = {n: cuda_ms(torch, lambda f=getattr(knn, n): f(*args, k=k),
+                         iters) for n in rec}
+        plain = {n: cuda_ms(torch, lambda f=getattr(knn, n + "_ref"):
+                            f(*args, k=k), 2, 1) for n in rec}
+        library = cuda_ms(torch, lambda: torch.topk(
+            torch.cdist(q, s), k, dim=-1, largest=False), 2, 1)
+        bytes_ms = (nq * 13 + ns * 13 + nq * k * 9) / HBM_BYTES_PER_S * 1e3
+        ops_ms = {"knn3_mxu": pairs * 32 / BF16_OPS_PER_S * 1e3,
+                  "knn3_exact": pairs * 8 / FP32_OPS_PER_S * 1e3}
+        errs = {"knn3_mxu": err, "knn3_exact": (de - dx).abs().max().item()}
+        print(f"kernel k={k} {nq}x{ns}: knn3_exact bit for bit its plain "
+              f"version, ms {ms['knn3_exact']:.4f} (plain "
+              f"{plain['knn3_exact']:.4f}); knn3_mxu vs plain agree "
+              f"{agree:.6f} err {err:.3g}, vs exact recall {recall:.5f} top1 "
+              f"{top1:.5f}, ms {ms['knn3_mxu']:.4f} (plain "
+              f"{plain['knn3_mxu']:.4f}); library {library:.4f}")
+        for n, r in rec.items():
+            r["max_abs_err"] = max(r["max_abs_err"], errs[n])
+            if main(args):
+                r["ms"] += ms[n]
+                r["plain_ms"] += plain[n]
+                r["library_ms"] += library
+                r["bytes_ms"] += bytes_ms
+                r["ops_ms"] += ops_ms[n]
+                r["bound_ms"] += max(bytes_ms, ops_ms[n])
+    return rec
+
+
+def any_k_phase(torch, knn, ragged, main_calls):
+    """Both kernels at list lengths other than the decoder's 3: ANY_K
+    (the register kernels) on one ragged, masked shape, LONG_K (the list
+    kernels) on the main path's four decoder calls and the ragged shape,
+    each held as `list_length_record` holds them; k = 129 refused.
+    Returns {(name, k): record}, the LONG_K records summed over the four
+    main calls."""
+    out = {}
+    for k in ANY_K:
+        rec = list_length_record(torch, knn, k, [ragged], lambda a: True)
+        out.update({(n, k): r for n, r in rec.items()})
+    for k in LONG_K:
+        rec = list_length_record(torch, knn, k, main_calls + [ragged],
+                                 lambda a: a is not ragged)
+        out.update({(n, k): r for n, r in rec.items()})
+        print(f"kernel k={k}, sum of the main path's 4 decoder calls: "
+              + "; ".join(f"{n} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+                          f"library {r['library_ms']:.4f} bound "
+                          f"{r['bound_ms']:.5f}" for n, r in rec.items()))
     for fn in (knn.knn3_mxu, knn.knn3_exact):
         try:
-            fn(*args, k=17)
+            fn(*ragged, k=knn.MAX_K + 1)
         except ValueError:
             continue
-        raise AssertionError("k = 17 was not refused")
+        raise AssertionError(f"k = {knn.MAX_K + 1} was not refused")
+    return out
 
 
 def tier_cagq(torch, cfg, tier, d, i, origin, vsize, key, D=2):
@@ -2018,6 +2084,7 @@ def _resident_worker(inputs, out_dir, job):
     """One rank of a resident-tier mesh (resident_phase): "train_cpu" and
     "card" on world 2 (gloo: CPU, or both ranks on cuda:0), "scenes" on a
     world-4 gloo mesh on cuda:0 laid out 2 x 2."""
+    import os
     import warnings
 
     import numpy as np
@@ -2031,6 +2098,12 @@ def _resident_worker(inputs, out_dir, job):
     from gridgcn_torch.parallel.resident_ml import resident_ml_seg_predict
     from gridgcn_torch.parallel.spatial import partition_scene
     from gridgcn_torch.utils import jaxrng
+
+    # the comm-audit test's wrapper of torch.distributed, from its file (a
+    # `tests` package installed elsewhere would shadow the directory)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_comm_worker import recording
 
     inp = torch.load(inputs, weights_only=False)
     out = {}
@@ -2067,6 +2140,11 @@ def _resident_worker(inputs, out_dir, job):
                 res["three_nn_inputs"] = calls
                 res["ms"] = timed_scene_ms(torch, lambda: pred.predict_scene(
                     xyz, spatial=name, rng=key), warmup=0)
+                # the bytes one request hands the collectives (comm phase;
+                # the comm-audit test's wrapper of torch.distributed)
+                res["collectives"] = []
+                with recording(res["collectives"]):
+                    pred.predict_scene(xyz, spatial=name, rng=key)
             res["warnings"] = [str(x.message) for x in w]
             # each layer's CAGQ on this shard, on the reference's level
             alike = []
@@ -2388,7 +2466,122 @@ def resident_phase(torch, np, knn, presets, jaxrng, scene_fn, Predictor,
     assert n1 == 4
     assert all(e["ghost_overflow"] == 0 for e in epochs) and len(epochs) == 2
     assert all(np.isfinite(e["loss"]) for e in epochs)
+    return {"single_ms": ms0, "tier3_world1_ms": ms1,
+            "collectives": [r["resident_ml"]["collectives"]
+                            for r in (r0, r1)]}
 
+
+
+def coord_phase(torch, np, Predictor, cfg, sd, xyz):
+    """The combined selection table's two gathers on the card: each of
+    scannet_whole_scene's four CAGQ layers, called as the served forward
+    calls it (its level, key and spec; 81920 points), again with
+    coord_match and with coord_payload: every GroupedNodes field bit for
+    bit the default packed path's; layer 0's on the CPU with each flag:
+    every index field and node_xyz bit for bit, center_xyz within 1e-5
+    (the devices' f32 prefix sums differ by ulps); ms per layer printed
+    (CUDA events; flag-off study paths)."""
+    import gridgcn_torch.models.gridconv as gridconv
+    from gridgcn_torch.ops.cagq import cagq
+
+    calls = []
+    real = gridconv.cagq
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    pred = Predictor(cfg, sd, device="cuda")
+    gridconv.cagq = recording
+    try:
+        pred(xyz)
+    finally:
+        gridconv.cagq = real
+    assert len(calls) == 4, len(calls)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def cpu(a):
+        return a.cpu() if torch.is_tensor(a) else a
+
+    for i, (args, kw) in enumerate(calls):
+        x, m, spec = args[:3]
+        base = cagq(*args, **kw).groups
+        names = [f.name for f in dataclasses.fields(base)
+                 if torch.is_tensor(getattr(base, f.name))]
+        ms = {"packed": cuda_ms(torch, lambda: cagq(*args, **kw), 5)}
+        for flag in ("coord_match", "coord_payload"):
+            fargs = (x, m, dataclasses.replace(spec, **{flag: True})) \
+                + args[3:]
+            g = cagq(*fargs, **kw).groups
+            torch.cuda.synchronize()
+            differ = [n for n in names if not torch.equal(
+                bits(getattr(g, n)), bits(getattr(base, n)))]
+            assert not differ, (i, flag, differ)
+            ms[flag] = cuda_ms(torch, lambda: cagq(*fargs, **kw), 5)
+            if i == 0:
+                gc = cagq(*map(cpu, fargs), **{k: cpu(v) for k, v in
+                                               kw.items()}).groups
+                cx = (getattr(g, "center_xyz").cpu()
+                      - gc.center_xyz).abs().max().item()
+                same = [n for n in names if n != "center_xyz" and
+                        torch.equal(bits(getattr(g, n).cpu()),
+                                    bits(getattr(gc, n)))]
+                print(f"coord layer 0 {flag}: the card against the CPU, "
+                      f"{len(same)} of {len(names) - 1} fields bit for bit, "
+                      f"center_xyz max |d| {cx:.3g}")
+                assert len(same) == len(names) - 1 and cx <= 1e-5, \
+                    (flag, same, cx)
+        print(f"coord layer {i} ({x.shape[1]} points -> {spec.n_centers} "
+              f"centers, nv {spec.nv}): coord_match and coord_payload equal "
+              f"the packed path in all {len(names)} fields; ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+
+def dryrun_phase(anchors):
+    """gridgcn_torch.dryrun.dryrun_multichip(4): every parallel program,
+    four gloo ranks sharing cuda:0; part 7's projection from the card's
+    own anchors. Rank 0 prints the reference's lines."""
+    from gridgcn_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, anchors=anchors, timeout_s=600)
+    kinds = [line.split(" ", 1)[0] for line in out["lines"]]
+    print(f"dryrun: 4 gloo ranks on cuda:0 in {time.perf_counter() - t0:.1f}"
+          f" s; lines {kinds}")
+    assert kinds == ["FEATURED_SPATIAL_TRAIN", "SCENE_BATCHED_TIER3",
+                     "SCENE_BATCHED_TIER3_TRAIN"] + ["COMM_REPORT"] * 6, kinds
+    for line in out["lines"]:
+        rec = json.loads(line.split(" ", 1)[1])
+        assert rec.get("ghost_overflow", 0) == 0, line
+
+
+def comm_phase(cfg, counted, anchors):
+    """The audit's bytes against the bytes the card's world-2 tier-3
+    forward handed its collectives (counted in the resident phase's
+    workers by `tests/torch_comm_worker.recording`): each rank's ring-shift
+    sends equal the audit's per-direction bytes; then the projections at
+    2, 4 and 8 ranks with the card's anchors."""
+    from gridgcn_torch.parallel.comm_audit import (
+        comm_report, print_comm_report)
+
+    want = comm_report(cfg, 2)["tier3"]["bytes_per_dir_per_chip"]
+    sent = [sum(b for k, b in log if k == "isend") for log in counted]
+    got = [sum(b for k, b in log if k == "irecv") for log in counted]
+    print(f"comm tier-3 forward of scannet_whole_scene at world 2 (gloo on "
+          f"cuda:0): ring-shift bytes sent per rank {sent}, received {got}; "
+          f"the audit's bytes per direction per chip {want}")
+    assert sent == got == [want, want], (sent, got, want)
+    a = anchors["scannet_whole_scene"]
+    for D in (2, 4, 8):
+        print_comm_report(cfg, D, compute_ms_per_step=a["compute_ms"] / D,
+                          ghost_tax=a["ghost_tax"], knn_ms=a["knn_ms"],
+                          label=f"scannet_whole_scene:default (anchors: "
+                                f"single-device {a['compute_ms']:.3f} ms, "
+                                f"ghost tax {a['ghost_tax']:.3f}, decoder "
+                                f"kNN ms {[round(t, 4) for t in a['knn_ms']]}"
+                                f", measured on this card)")
 
 
 def main() -> int:
@@ -2426,12 +2619,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # the main path's list length and the kernel phase's others (any_k)
-    logs = knn.build_kernels(ANY_K + (3,))
+    logs = knn.build_kernels(ANY_K + (3,) + LONG_K)
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(logs)} "
-          f"builds (knn.cu, k = {sorted(ANY_K + (3,))}, side by side)")
+          f"builds ({sorted(logs)}, side by side)")
     print(f"phase build: {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
-        if src != "knn.cu k=3":      # the main path's build; others below
+        # the main path's build and the list kernels'; others below
+        if src not in ("knn.cu k=3", f"knn.cu k=17..{knn.MAX_K}"):
             continue
         for line in log.splitlines():
             if ("registers" in line or "Compiling" in line or "smem" in line
@@ -2483,7 +2677,9 @@ def main() -> int:
         (grid_inputs(torch, 4096, 2048, 3), "grid")]
     with phase("kernels"):
         totals = kernel_phase(torch, knn, cases)
-        any_k_phase(torch, knn, ragged_inputs(torch, 1000, 700, 693, 1))
+        any_k = any_k_phase(torch, knn,
+                            ragged_inputs(torch, 1000, 700, 693, 1),
+                            main_calls)
 
     with phase("correctness"):
         correctness_phase(torch, np, Predictor, cfg, sd,
@@ -2540,20 +2736,38 @@ def main() -> int:
                  jaxrng, train_cfg, train_ds, synthetic_scene_surface,
                  Predictor)
     with phase("resident tiers"):
-        resident_phase(torch, np, knn, presets, jaxrng,
-                       synthetic_scene_surface, Predictor, card)
+        tiers = resident_phase(torch, np, knn, presets, jaxrng,
+                               synthetic_scene_surface, Predictor, card)
+    # the card's own anchors for the audit's projections: single-device
+    # predict_scene, tier 3 at world 1 against it (the ghost tax), and the
+    # decoder's knn3_mxu calls (the kernel phase's main cases)
+    anchors = {"scannet_whole_scene": {
+        "compute_ms": tiers["single_ms"],
+        "ghost_tax": tiers["tier3_world1_ms"] / tiers["single_ms"] - 1.0,
+        "knn_ms": totals["knn3_mxu"]["stage_ms"]}}
+    with phase("comm audit"):
+        comm_phase(cfg, tiers["collectives"], anchors)
+    with phase("dry run"):
+        dryrun_phase(anchors)
+    with phase("cagq coord"):
+        coord_phase(torch, np, Predictor, cfg, sd,
+                    synthetic_scene_surface(81920, seed=7))
 
     replaces = {"knn3_mxu": "gridgcn_tpu/ops/pallas/knn.py:97",
                 "knn3_exact": "gridgcn_tpu/ops/pallas/knn.py:55"}
-    kernels = [dict(name=k, route="cuda",
-                    source="gridgcn_torch/csrc/knn.cu", replaces=replaces[k],
-                    launches=launches[k],
-                    bound_by=("operations" if totals[k]["ops_ms"]
-                              >= totals[k]["bytes_ms"] else "bytes"),
-                    **{f: totals[k][f] for f in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "library_ms")})
-               for k in ("knn3_mxu", "knn3_exact")]
+    # every instantiation the script launched: k = 3 (the main path's, on
+    # its four calls), then the other list lengths (any_k_phase); launches
+    # are the main path's (serving_phase) for each list length
+    records = [(k, 3, totals[k]) for k in ("knn3_mxu", "knn3_exact")] + [
+        (n, k, r) for (n, k), r in sorted(any_k.items())]
+    kernels = [dict(name=n if k == 3 else f"{n} k={k}", route="cuda",
+                    source="gridgcn_torch/csrc/knn.cu", replaces=replaces[n],
+                    launches=launches[n].get(k, 0),
+                    bound_by=("operations" if r["ops_ms"] >= r["bytes_ms"]
+                              else "bytes"),
+                    **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")})
+               for n, k, r in records]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,8 @@
 // Hopper kernels for the decoder's 3-NN query ("flash-kNN").
 //
 // Built by gridgcn_torch/kernels/knn.py once for each list length k
-// (1..16) at the first CUDA call that asks for it:
+// (1..16), and once for all the longer lists (17..128, -DKNN_K=0), at the
+// first CUDA call that asks for it:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DKNN_K=k -o libknn_k<k>-<hash>.so knn.cu
 // Plain C interface, loaded with ctypes. Each launch function enqueues its
@@ -14,7 +15,10 @@
 // They are templates on the list length K; a build instantiates them for
 // K = KNN_K (1 <= KNN_K <= kMaxK = 16), one library per length, so that
 // the 16 builds run side by side. The decoder's k = 3 is the main path,
-// and its instantiation is the design described below.
+// and its instantiation is the design described below. Lists of 17..128
+// (the reference's bound: its kernels write or fold their winners into
+// 128-lane rows) take the list kernels at the end of this file instead:
+// one build, k a runtime argument, each list sorted in shared memory.
 // At the main path's largest call (Nq 81920 x Ns 8192, 6.7e8 pairs) the
 // inputs and outputs are ~5 MB (~1.5 us at 3.35 TB/s), so both kernels are
 // bound by operations, not by memory:
@@ -72,10 +76,12 @@ constexpr float kValidMax = 5e29f;   // d2 below this is a real neighbor
 constexpr int kKeyMax = 0x7FFFFFFF;
 constexpr int kMasked = static_cast<int>(0x80000000u);  // staged column flag
 constexpr int kMaxK = 16;            // the longest list instantiated
+constexpr int kMaxListK = 128;       // the list kernels' longest list
 #ifndef KNN_K
 #define KNN_K 3
 #endif
-static_assert(KNN_K >= 1 && KNN_K <= kMaxK, "KNN_K must be in 1..16");
+// 1..16: the register kernels for that k; 0: the list kernels (17..128)
+static_assert(KNN_K >= 0 && KNN_K <= kMaxK, "KNN_K must be in 0..16");
 
 // a * b mod n for 0 <= a < n + 256 and 0 <= b < n: a 32-bit remainder
 // where the product fits (a 64-bit one is a slow library routine)
@@ -725,6 +731,298 @@ int mxu_launch(const float* q, const uint8_t* q_mask, const uint4* pack,
   return static_cast<int>(cudaGetLastError());
 }
 
+#if KNN_K == 0
+// ------------------------------------------------------------------------
+// The list kernels: 17 <= k <= kMaxListK, k a runtime argument. A list of
+// up to 128 does not fit in registers, so each lane keeps its sorted list
+// in shared memory (entry j of lane l at [j * lanes + l]: the lanes of a
+// warp touch 32 banks) and its tail in registers; a candidate that beats
+// the tail is inserted by moving the entries it precedes down one. In a
+// random visit order a list of k over n candidates takes about
+// k * ln(n / k) inserts, so the shifts cost less than the pairs' distances
+// at the decoder's sizes. Both kernels keep the register kernels' key
+// packing, visit order and tie rules, so they give their plain versions'
+// answers (knn3_exact_ref bit for bit).
+
+constexpr int kListThreads = 128;    // both list kernels: 4 warps a block
+constexpr int kListTile = 1024;      // exact: 1024 columns x 16 B = 16 KB
+constexpr int kListStage = 256;      // mxu: 256 packed columns x 32 B = 8 KB
+constexpr int kListChunk = 64;       // mxu: distances a warp stages at once
+
+// Dynamic shared memory of the list kernels for a list of k.
+int list_exact_smem(int k) {
+  return k * kListThreads * 4 + kListTile * 16;
+}
+int list_mxu_smem(int k) {
+  return 2 * kListStage * 32 + (kListThreads / 32) * 32 * (kListChunk + 1) * 4 +
+         k * kListThreads * 8;
+}
+
+// knn3_exact for 17 <= k <= 128 (replaces the JAX package's ops/pallas/
+// knn.py _knn_kernel at those k): knn3_exact_kernel's staged tile, keys
+// and group threshold; G lanes share a query and each keeps a list of the
+// keys it visited; the group's lists are merged by k shuffle-min passes.
+__global__ void __launch_bounds__(kListThreads)
+knn_list_exact_kernel(const float* __restrict__ q,
+                      const uint8_t* __restrict__ q_mask,
+                      const float* __restrict__ s,
+                      const uint8_t* __restrict__ s_mask, int nq, int ns,
+                      int ns_pad, int idx_bits, int step, int k, int G,
+                      float* __restrict__ out_d, int* __restrict__ out_i,
+                      uint8_t* __restrict__ out_v) {
+  extern __shared__ __align__(16) unsigned char list_smem[];
+  float4* tile = reinterpret_cast<float4*>(list_smem);
+  int* lst = reinterpret_cast<int*>(tile + kListTile) + threadIdx.x;
+  const int lig = threadIdx.x % G;
+  const int qi = blockIdx.x * (kListThreads / G) + threadIdx.x / G;
+  const int low = (1 << idx_bits) - 1;
+  for (int j = 0; j < k; ++j) lst[j * kListThreads] = kKeyMax;
+  int tail = kKeyMax;   // this lane's k-th key
+  int thr = kKeyMax;    // at most the group's lowest tail: what may enter
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if (qi < nq) {
+    px = q[3 * qi];
+    py = q[3 * qi + 1];
+    pz = q[3 * qi + 2];
+  }
+  const int stage_step = mul_mod(kListThreads % ns_pad, step, ns_pad);
+  for (int c0 = 0; c0 < ns_pad; c0 += kListTile) {
+    const int n = min(kListTile, ns_pad - c0);     // a multiple of 128
+    __syncthreads();
+    int c = mul_mod(c0 + threadIdx.x, step, ns_pad);
+    for (int t = threadIdx.x; t < n; t += kListThreads) {
+      float4 v = make_float4(0.f, 0.f, 0.f, __int_as_float(c | kMasked));
+      if (c < ns) {
+        v.x = s[3 * c];
+        v.y = s[3 * c + 1];
+        v.z = s[3 * c + 2];
+        if (s_mask[c]) v.w = __int_as_float(c);
+      }
+      tile[t] = v;
+      c += stage_step;
+      if (c >= ns_pad) c -= ns_pad;
+    }
+    __syncthreads();
+    for (int i = 0; i < n / G; ++i) {
+      const float4 v = tile[lig + i * G];
+      const float dx = __fsub_rn(px, v.x);
+      const float dy = __fsub_rn(py, v.y);
+      const float dz = __fsub_rn(pz, v.z);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const int w = __float_as_int(v.w);
+      const int key =
+          pack_key(__float_as_int(w >= 0 ? d : kBig), ~low, w & low);
+      if (key < thr) {
+        int j = k - 1;
+        for (; j > 0; --j) {
+          const int prev = lst[(j - 1) * kListThreads];
+          if (prev < key) break;
+          lst[j * kListThreads] = prev;
+        }
+        lst[j * kListThreads] = key;
+        tail = lst[(k - 1) * kListThreads];
+        thr = min(thr, tail);
+      }
+      if (i % kShare == kShare - 1) {
+        int m = tail;
+        for (int off = G / 2; off > 0; off >>= 1) {
+          m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+        }
+        thr = m;
+      }
+    }
+  }
+  // merge the group's G lists: each pass takes the smallest head and the
+  // lane that holds it moves on to its next key
+  const bool qv = qi < nq && q_mask[qi] != 0;
+  int pos = 0;
+  for (int j = 0; j < k; ++j) {
+    const int head = pos < k ? lst[pos * kListThreads] : kKeyMax;
+    int m = head;
+    for (int off = G / 2; off > 0; off >>= 1) {
+      m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+    }
+    if (head == m) ++pos;
+    if (lig == 0 && qi < nq) {
+      const float d = __int_as_float(m & ~low);
+      out_d[k * qi + j] = d;
+      out_i[k * qi + j] = m & low;
+      out_v[k * qi + j] = (qv && d < kValidMax) ? 1 : 0;
+    }
+  }
+}
+
+// (value, column) as one 64-bit key whose unsigned order is that of
+// before() for a value that is not NaN: the value's bits made monotone,
+// then the column.
+__device__ __forceinline__ unsigned long long pair_key(float v, int col) {
+  const unsigned b = __float_as_uint(v);
+  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (static_cast<unsigned long long>(o) << 32) |
+         static_cast<unsigned>(col);
+}
+
+__device__ __forceinline__ float pair_value(unsigned long long key) {
+  const unsigned o = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+// knn3_mxu for 17 <= k <= 128 (replaces _knn_kernel_mxu at those k): the
+// same packed supports (mxu_pack_kernel) and the same two mma.sync per n8
+// tile, so the same d2 + 1 bits. A warp owns 32 queries; it writes the d2
+// + 1 of kListChunk packed columns to shared memory, then each lane scans
+// its query's row and inserts (value, column) pairs, packed by pair_key,
+// in the order of three first-occurrence argmin passes (ties to the lower
+// column), as knn3_mxu_kernel and knn3_mxu_ref do; NaN never enters.
+__global__ void __launch_bounds__(kListThreads)
+knn_list_mxu_kernel(const float* __restrict__ q,
+                    const uint8_t* __restrict__ q_mask,
+                    const uint4* __restrict__ pack,
+                    const float* __restrict__ center, int nq, int ns,
+                    int ns_pad, int step, int k, float* __restrict__ out_d,
+                    int* __restrict__ out_i, uint8_t* __restrict__ out_v) {
+  extern __shared__ __align__(16) unsigned char list_smem[];
+  uint4* stage = reinterpret_cast<uint4*>(list_smem);   // [2][kListStage * 2]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kRow = kListChunk + 1;                 // padded: no conflicts
+  float* dist = reinterpret_cast<float*>(stage + 4 * kListStage) +
+                warp * 32 * kRow;
+  unsigned long long* lst = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<float*>(stage + 4 * kListStage) +
+      (kListThreads / 32) * 32 * kRow) + threadIdx.x;
+  const int g = lane / 4, t = lane % 4;
+  const int qbase = blockIdx.x * kListThreads + warp * 32;
+
+  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  {
+    const float c[3] = {center[0], center[1], center[2]};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float r0[16], r1[16];
+      query_row(q, nq, qbase + 16 * mt + g, c, r0);
+      query_row(q, nq, qbase + 16 * mt + g + 8, c, r1);
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        if (tt == t) {
+          a[mt][0] = bf16x2(r0[2 * tt], r0[2 * tt + 1]);
+          a[mt][1] = bf16x2(r1[2 * tt], r1[2 * tt + 1]);
+          a[mt][2] = bf16x2(r0[2 * tt + 8], r0[2 * tt + 9]);
+          a[mt][3] = bf16x2(r1[2 * tt + 8], r1[2 * tt + 9]);
+        }
+      }
+    }
+  }
+  // this lane's k-th key, at first (inf, kKeyMax) as in knn3_mxu_kernel
+  unsigned long long tail = pair_key(__int_as_float(0x7F800000), kKeyMax);
+  for (int j = 0; j < k; ++j) lst[j * kListThreads] = tail;
+
+  const int ntiles = ns_pad / 8;
+  const int n_stages = (ns_pad + kListStage - 1) / kListStage;
+  auto load_stage = [&](int st) {
+    const int c0 = st * kListStage;
+    const int n = 2 * min(kListStage, ns_pad - c0);
+    for (int i = threadIdx.x; i < n; i += kListThreads) {
+      cp_async16(&stage[(st & 1) * 2 * kListStage + i], &pack[2 * c0 + i]);
+    }
+  };
+  load_stage(0);
+  cp_async_commit();
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) load_stage(st + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int p0 = st * (kListStage / 8);
+    const int ntile = min(kListStage, ns_pad - st * kListStage) / 8;
+    const uint2* buf = reinterpret_cast<const uint2*>(
+        stage + (st & 1) * 2 * kListStage);
+    for (int j0 = 0; j0 < ntile; j0 += kListChunk / 8) {
+#pragma unroll
+      for (int jj = 0; jj < kListChunk / 8; ++jj) {
+        const uint2 b = buf[32 * (j0 + jj) + lane];
+        float d[2][4];
+        mma_bf16_16816(d[0], a[0], b.x, b.y);
+        mma_bf16_16816(d[1], a[1], b.x, b.y);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float* r0 = dist + (16 * mt + g) * kRow + 8 * jj + 2 * t;
+          float* r1 = r0 + 8 * kRow;
+          r0[0] = d[mt][0];
+          r0[1] = d[mt][1];
+          r1[0] = d[mt][2];
+          r1[1] = d[mt][3];
+        }
+      }
+      __syncwarp();
+      const float* row = dist + lane * kRow;
+      for (int jj = 0; jj < kListChunk / 8; ++jj) {
+        const int col0 = 8 * mul_mod(p0 + j0 + jj, step, ntiles);
+        for (int e = 0; e < 8; ++e) {
+          const float v = row[8 * jj + e];
+          const unsigned long long key = pair_key(v, col0 + e);
+          if (key < tail && v == v) {
+            int j = k - 1;
+            for (; j > 0; --j) {
+              const unsigned long long prev = lst[(j - 1) * kListThreads];
+              if (prev < key) break;
+              lst[j * kListThreads] = prev;
+            }
+            lst[j * kListThreads] = key;
+            tail = lst[(k - 1) * kListThreads];
+          }
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  const int qi = qbase + lane;
+  if (qi >= nq) return;
+  const bool qm = q_mask[qi] != 0;
+  for (int j = 0; j < k; ++j) {
+    const unsigned long long key = lst[j * kListThreads];
+    const float d = fmaxf(pair_value(key) - 1.0f, 0.0f);
+    out_d[k * qi + j] = d;
+    out_i[k * qi + j] = min(static_cast<int>(key & 0xFFFFFFFFu), ns - 1);
+    out_v[k * qi + j] = (qm && d < kValidMax) ? 1 : 0;
+  }
+}
+
+int list_exact_launch(const float* q, const uint8_t* q_mask, const float* s,
+                      const uint8_t* s_mask, int nq, int ns, int ns_pad,
+                      int idx_bits, int k, float* out_d, int* out_i,
+                      uint8_t* out_v, cudaStream_t st) {
+  // lanes per query: the fewest that still give every SM 2 blocks
+  const int want = 2 * sm_count();
+  int G = 1;
+  while (G < 32 && blocks_for(nq, kListThreads / G) < want) G *= 2;
+  const int smem = list_exact_smem(k);
+  cudaFuncSetAttribute(knn_list_exact_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  knn_list_exact_kernel<<<blocks_for(nq, kListThreads / G), kListThreads,
+                          smem, st>>>(q, q_mask, s, s_mask, nq, ns, ns_pad,
+                                      idx_bits, visit_step(ns_pad), k, G,
+                                      out_d, out_i, out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int list_mxu_launch(const float* q, const uint8_t* q_mask, const uint4* pack,
+                    const float* center, int nq, int ns, int ns_pad, int k,
+                    float* out_d, int* out_i, uint8_t* out_v,
+                    cudaStream_t st) {
+  const int smem = list_mxu_smem(k);
+  cudaFuncSetAttribute(knn_list_mxu_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  knn_list_mxu_kernel<<<blocks_for(nq, kListThreads), kListThreads, smem,
+                        st>>>(q, q_mask, pack, center, nq, ns, ns_pad,
+                              visit_step(ns_pad / 8), k, out_d, out_i,
+                              out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // KNN_K == 0
+
 }  // namespace
 
 extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
@@ -732,11 +1030,19 @@ extern "C" int knn3_exact_launch(const float* q, const uint8_t* q_mask,
                                  int nq, int ns, int ns_pad, int idx_bits,
                                  int k, float* out_d, int* out_i,
                                  uint8_t* out_v, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if KNN_K == 0
+  if (k <= kMaxK || k > kMaxListK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return list_exact_launch(q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, k,
+                           out_d, out_i, out_v, st);
+#else
   // this library's list length only
   if (k != KNN_K) return static_cast<int>(cudaErrorInvalidValue);
   return exact_launch<KNN_K>(q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits,
-                             out_d, out_i, out_v,
-                             static_cast<cudaStream_t>(stream));
+                             out_d, out_i, out_v, st);
+#endif
 }
 
 // scratch: the packed support operand (ns_pad x 32 B), then the center
@@ -757,12 +1063,23 @@ extern "C" int knn3_mxu_launch(const float* q, const uint8_t* q_mask,
                                int nq, int ns, int ns_pad, int k,
                                void* scratch, float* out_d, int* out_i,
                                uint8_t* out_v, void* stream) {
+#if KNN_K == 0
+  if (k <= kMaxK || k > kMaxListK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#else
   if (k != KNN_K) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   const int err = mxu_pack_launch(s, s_mask, ns, ns_pad, scratch, stream);
   if (err != 0) return err;
   const uint4* pack = static_cast<const uint4*>(scratch);
-  return mxu_launch<KNN_K>(q, q_mask, pack,
-                           reinterpret_cast<const float*>(pack + 2 * ns_pad),
-                           nq, ns, ns_pad, out_d, out_i, out_v,
-                           static_cast<cudaStream_t>(stream));
+  const float* center = reinterpret_cast<const float*>(pack + 2 * ns_pad);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if KNN_K == 0
+  return list_mxu_launch(q, q_mask, pack, center, nq, ns, ns_pad, k, out_d,
+                         out_i, out_v, st);
+#else
+  return mxu_launch<KNN_K>(q, q_mask, pack, center, nq, ns, ns_pad, out_d,
+                           out_i, out_v, st);
+#endif
 }

@@ -25,14 +25,19 @@ kernels are compiled from the package's sources with `nvcc` on first CUDA
 use (`build_kernels`), never at import: one library per list length k,
 built when a call first asks for that k. The CUDA implementation counts the
 calls in which it launches its kernels in a plain integer attribute of the
-public wrapper, `knn3_mxu.launches`, also inside an exported program;
+public wrapper, `knn3_mxu.launches` (and by list length in
+`knn3_mxu.launches_by_k`), also inside an exported program;
 `knn3_mxu` also adds its pack to `mxu_pack_support.launches`. Every output
 is a tensor of its own (a custom op's outputs may not alias), and the mxu
 call's packed supports a fourth.
 
 Both kernels take the list length k (default 3, the decoder's) for
-1 ≤ k ≤ MAX_K: `knn.cu` is built once for each k that is used
-(`-DKNN_K=k`); a longer list raises. The plain versions take any k.
+1 ≤ k ≤ MAX_K = 128, the reference's bound (its kernels write or fold
+their winners into 128-lane rows). For k ≤ REG_MAX_K = 16 `knn.cu` is
+built once for each k that is used (`-DKNN_K=k`: the lists in
+registers); the longer lists share one build (`-DKNN_K=0`: the lists in
+shared memory, k a runtime argument). A longer list raises. The plain
+versions take any k.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch
 
 _BIG = 1e30
 _VALID_MAX = _BIG * 0.5
-MAX_K = 16          # the longest list the CUDA kernels are instantiated for
+MAX_K = 128         # the longest list: the reference's 128-lane rows
+REG_MAX_K = 16      # the longest list built with its lists in registers
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("knn.cu",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -74,20 +80,32 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(source: str, k: int) -> Path:
+def _build_k(k: int) -> int:
+    """The `-DKNN_K` of the build that serves list length k: k itself up
+    to REG_MAX_K, 0 (the shared-memory list kernels) above."""
+    return k if k <= REG_MAX_K else 0
+
+
+def _lib_path(source: str, build: int) -> Path:
     digest = hashlib.sha1((_CSRC / source).read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_k{k}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_k{build}-{digest}.so"
+
+
+def _build_name(source: str, build: int) -> str:
+    return f"{source} k={build if build else f'{REG_MAX_K + 1}..{MAX_K}'}"
 
 
 def build_kernels(ks=(3,)) -> dict[str, str]:
     """Compile every CUDA source of the package for each list length in
-    `ks` that is not built yet, one `nvcc` per source and length, all
-    started together; raises if a build fails. Returns {"<source> k=<k>":
-    compiler log} for those builds: the `-Xptxas -v` register,
-    shared-memory and spill report, kept beside the library."""
+    `ks` that is not built yet, one `nvcc` per source and build (one per
+    k ≤ REG_MAX_K, one for every longer k), all started together; raises
+    if a build fails. Returns {"<source> k=<k>" (or "k=17..128"): compiler
+    log} for those builds: the `-Xptxas -v` register, shared-memory and
+    spill report, kept beside the library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    builds = [(src, check_k(k)) for src in SOURCES for k in ks]
+    builds = list(dict.fromkeys((src, _build_k(check_k(k)))
+                                for src in SOURCES for k in ks))
     procs = {}
     for src, k in builds:
         out = _lib_path(src, k)
@@ -101,16 +119,20 @@ def build_kernels(ks=(3,)) -> dict[str, str]:
     for (src, k), (out, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (k={k}):\n{log}")
+            raise RuntimeError(f"nvcc failed on {_build_name(src, k)}:\n"
+                               f"{log}")
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-    return {f"{src} k={k}": _lib_path(src, k).with_suffix(".log").read_text()
+    return {_build_name(src, k):
+            _lib_path(src, k).with_suffix(".log").read_text()
             for src, k in builds}
 
 
 def _lib(source: str, k: int) -> ctypes.CDLL:
+    """The library that serves list length k (built on first use)."""
+    k = _build_k(k)
     if (source, k) not in _libs:
-        build_kernels((k,))
+        build_kernels((k or MAX_K,))
         lib = ctypes.CDLL(str(_lib_path(source, k)))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.knn3_exact_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p,
@@ -187,10 +209,13 @@ def _outputs(nq: int, like: torch.Tensor, k: int = 3) -> tuple:
 
 
 def check_k(k: int) -> int:
-    """k, if the kernels take it: 1 ≤ k ≤ MAX_K."""
+    """k, if the kernels take it: 1 ≤ k ≤ MAX_K (128), the bound of the
+    reference's kernels, which write or fold their winners into 128-lane
+    rows."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the flash-kNN kernels take 1 <= k <= {MAX_K} "
-                         f"(MAX_K), got k={k}")
+                         f"(MAX_K: the reference's 128-lane limit), got "
+                         f"k={k}")
     return k
 
 
@@ -275,6 +300,7 @@ def _knn3_exact_cuda(q_xyz, q_mask, s_xyz, s_mask, k=3):
     if err != 0:
         raise RuntimeError(f"knn3_exact launch failed: CUDA error {err}")
     knn3_exact.launches += 1
+    knn3_exact.launches_by_k[k] = knn3_exact.launches_by_k.get(k, 0) + 1
     return out_d, out_i, out_v
 
 
@@ -289,6 +315,7 @@ def knn3_exact(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
 
 
 knn3_exact.launches = 0
+knn3_exact.launches_by_k = {}     # the same calls, by list length
 
 
 # ------------------------------------------------------------------ mxu --
@@ -404,6 +431,7 @@ def _knn3_mxu_cuda(q_xyz, q_mask, s_xyz, s_mask, k=3):
     if err != 0:
         raise RuntimeError(f"knn3_mxu launch failed: CUDA error {err}")
     knn3_mxu.launches += 1
+    knn3_mxu.launches_by_k[k] = knn3_mxu.launches_by_k.get(k, 0) + 1
     mxu_pack_support.launches += 1
     return out_d, out_i, out_v
 
@@ -419,6 +447,7 @@ def knn3_mxu(q_xyz, q_mask, s_xyz, s_mask, k: int = 3):
 
 
 knn3_mxu.launches = 0
+knn3_mxu.launches_by_k = {}
 
 
 def mxu_pack_support_ref(s_xyz, s_mask):

@@ -61,5 +61,6 @@ def cagq(xyz: torch.Tensor, mask: torch.Tensor, spec: GridLayerSpec,
         table, xyz, center_vids, center_valid, spec.k_neighbors,
         spec.context, k_gather, center_mode=spec.center_mode,
         approx=use_packed, return_candidates=need_candidates,
-        approx_topk=spec.approx_topk, row0=row0)
+        approx_topk=spec.approx_topk, row0=row0,
+        coord_payload=spec.coord_payload)
     return CAGQOutput(table=table, groups=groups)

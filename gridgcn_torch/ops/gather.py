@@ -20,6 +20,16 @@ rest), ties lower index first as `lax.top_k` takes them.
 input of 'candidates' context pooling. The JAX package may select packed
 keys with an approximate top-k; the port always takes the exact top-k of
 the same unique keys.
+
+A table built with `sel_coords` (the flag-off `coord_match`/`coord_payload`
+studies) carries each slot's coordinates beside its key, so the walk
+fetches [key | x | y | z] quads and the winners' coordinates come from
+their candidates instead of a gather of the level's points: `coord_match`
+takes the top-K keys and looks their coordinates up at the winners'
+candidate positions (the JAX package's exact one-hot key match: keys are
+unique); `coord_payload` sorts the candidates by key, descending, and
+reads the coordinates in that order (its 4-operand sort). Both give the
+packed path's outputs bit for bit.
 """
 
 from __future__ import annotations
@@ -129,22 +139,61 @@ def _gather_packed(table: VoxelTable, xyz: torch.Tensor,
     if kk < K:
         top = torch.nn.functional.pad(top, (0, K - kk))
 
-    # decode [valid | random | log-coverage | point index]
-    idx_bits = max(1, int(N - 1).bit_length())
-
-    def decode(keys):
-        keys = keys.long()
-        valid = keys >= VALID_KEY_MIN
-        idx = torch.where(valid, keys & ((1 << idx_bits) - 1), 0)
-        cov = torch.where(valid, decode_coverage(
-            (keys >> idx_bits) & ((1 << COV_BITS) - 1)), 0)
-        return valid, idx, cov
-
-    neighbor_mask, neighbor_idx, node_coverage = decode(top)
+    neighbor_mask, neighbor_idx, node_coverage = _decode_keys(top, N)
     cand_valid = cand_idx = None
     if return_candidates:
-        cand_valid, cand_idx, _ = decode(cand)
+        cand_valid, cand_idx, _ = _decode_keys(cand, N)
     return neighbor_idx, neighbor_mask, node_coverage, cand_idx, cand_valid
+
+
+def _gather_sel(table: VoxelTable, center_vids: torch.Tensor,
+                center_valid: torch.Tensor, K: int, context: int, N: int,
+                coord_payload: bool):
+    """Node selection over the combined selection table → (neighbor_idx,
+    neighbor_mask, node_coverage, node_xyz, cand_keys); the table must be
+    padded with (r, context) rows, as CAGQ builds it."""
+    nv = table.nv
+    B, M = center_vids.shape
+    P = context ** 3
+    r = (context - 1) // 2
+    sel = table.sel_table_pad
+    if sel.shape[1] != r + table.num_voxels + context:
+        raise ValueError(f"the selection table needs key_pad=({r}, "
+                         f"{context}) for context {context}")
+    runs, inb = _context_runs(sel, center_vids, center_valid,
+                              table.resolution, context)        # [B,M,P,128]
+    runs = runs.view(B, M, P, 32, 4)[:, :, :, :nv]
+    runs = torch.where(inb[..., None, None], runs, 0).reshape(B, M, P * nv, 4)
+    cand_keys = runs[..., 0]
+    cand_xyz = runs[..., 1:4].contiguous().view(torch.float32)
+    kk = min(K, P * nv)
+    if coord_payload:
+        # descending by key = ascending by ~key: valid keys (bit 29 set)
+        # come first, empty slots (key 0, quad 0) after them
+        nk, pos = torch.sort(~cand_keys, dim=-1, stable=True)
+        top, pos = ~nk[..., :kk], pos[..., :kk]
+    else:
+        top, pos = torch.topk(cand_keys, kk, dim=-1, largest=True,
+                              sorted=True)
+    node_xyz = torch.gather(cand_xyz, 2, pos[..., None].expand(B, M, kk, 3))
+    if kk < K:
+        top = torch.nn.functional.pad(top, (0, K - kk))
+        node_xyz = torch.nn.functional.pad(node_xyz, (0, 0, 0, K - kk))
+    neighbor_mask, neighbor_idx, node_coverage = _decode_keys(top, N)
+    node_xyz = torch.where(neighbor_mask[..., None], node_xyz, 0.0)
+    return neighbor_idx, neighbor_mask, node_coverage, node_xyz, cand_keys
+
+
+def _decode_keys(keys: torch.Tensor, N: int):
+    """[valid | random | log-coverage | point index] keys of a level of N
+    points → (valid, point index, coverage), 0 where invalid."""
+    idx_bits = max(1, int(N - 1).bit_length())
+    keys = keys.long()
+    valid = keys >= VALID_KEY_MIN
+    idx = torch.where(valid, keys & ((1 << idx_bits) - 1), 0)
+    cov = torch.where(valid, decode_coverage(
+        (keys >> idx_bits) & ((1 << COV_BITS) - 1)), 0)
+    return valid, idx, cov
 
 
 def _gather_slots(table: VoxelTable, center_vids: torch.Tensor,
@@ -219,14 +268,25 @@ def gather_nodes(table: VoxelTable, xyz: torch.Tensor,
                  K: int, context: int, key: np.ndarray,
                  center_mode: str = "barycenter", approx: bool = False,
                  return_candidates: bool = False,
-                 approx_topk: bool = False, row0: int = 0) -> GroupedNodes:
+                 approx_topk: bool = False, row0: int = 0,
+                 coord_payload: bool = False) -> GroupedNodes:
     """Batched F-04 gather; centers from F-02/F-03; xyz = level points
-    [B, N, 3]. approx=True: the packed-key path (needs the key table);
-    approx=False: the slot-table path (needs slots and coverage), whose
-    random scores come from `key` split per cloud (the clouds are rows
-    [row0, row0 + B) of the batch whose key this is). `approx_topk` is
-    accepted for config parity: the port always selects the exact top-K."""
-    if approx:
+    [B, N, 3]. approx=True: the packed-key path (needs the key table; on a
+    table with the combined selection table, `coord_match`, or
+    `coord_payload` when that is set); approx=False: the slot-table path
+    (needs slots and coverage), whose random scores come from `key` split
+    per cloud (the clouds are rows [row0, row0 + B) of the batch whose key
+    this is). `approx_topk` is accepted for config parity: the port always
+    selects the exact top-K."""
+    nxyz = None
+    if approx and table.sel_table_pad is not None:
+        nidx, nmask, ncov, nxyz, ckeys = _gather_sel(
+            table, center_vids, center_valid, K, context, xyz.shape[1],
+            coord_payload)
+        cvalid = cidx = None
+        if return_candidates:
+            cvalid, cidx, _ = _decode_keys(ckeys, xyz.shape[1])
+    elif approx:
         nidx, nmask, ncov, cidx, cvalid = _gather_packed(
             table, xyz, center_vids, center_valid, K, context,
             return_candidates)
@@ -234,8 +294,9 @@ def gather_nodes(table: VoxelTable, xyz: torch.Tensor,
         nidx, nmask, ncov, cidx, cvalid = _gather_slots(
             table, center_vids, center_valid, K, context,
             jaxrng.split(key, center_vids.shape[0], start=row0))
-    nxyz = _take_rows(xyz, nidx)                                  # [B,M,K,3]
-    nxyz = torch.where(nmask[..., None], nxyz, 0.0)
+    if nxyz is None:
+        nxyz = _take_rows(xyz, nidx)                              # [B,M,K,3]
+        nxyz = torch.where(nmask[..., None], nxyz, 0.0)
     cxyz = center_positions(
         table.coord_csum, table.seg_pos, table.occupancy, center_vids,
         center_valid, table.resolution, center_mode, table.origin,

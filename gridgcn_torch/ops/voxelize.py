@@ -12,9 +12,9 @@ Sort-based and race-free, as in the JAX package's `ops/voxelize.py`:
 Besides the packed key table (`with_keys`), the build makes on request
 the index slot table (`with_slots`), the raw per-voxel coverage grid
 (`with_coverage`) and the packed coordinate table (`with_coords`), as the
-JAX package's `ops/voxelize.py` does. The combined selection table of its
-flag-off `coord_match`/`coord_payload` studies (`sel_coords`) raises
-`NotImplementedError`.
+JAX package's `ops/voxelize.py` does, and the combined selection table of
+its flag-off `coord_match`/`coord_payload` studies (`sel_coords`): one
+[rows, 128] int32 row per voxel of up to 32 [key | x | y | z] quads.
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ class VoxelTable:
                      sentinel row V hold +COORD_SENTINEL (with_coords=True).
       coverage:      [B, V] int64 or None — raw points per voxel, uncapped
                      (with_coverage=True).
+      sel_table_pad: [B, pad_lo+V+pad_hi, 128] int32 or None — the combined
+                     selection table (sel_coords=True): slot j of a voxel's
+                     row holds the quad [key | x | y | z] at columns
+                     4j..4j+3, the coordinates' f32 bits; empty slots and
+                     pad rows are zero. key_table is then a view of it and
+                     key_table_pad None.
       coord_csum:    [B, N, 3] — inclusive cumulative sum of voxel-center
                      residuals (point − its voxel's center) in voxel-sorted
                      order; a voxel's barycenter is a difference of two rows.
@@ -81,6 +87,7 @@ class VoxelTable:
     slots: torch.Tensor | None = None
     coord_table: torch.Tensor | None = None
     coverage: torch.Tensor | None = None
+    sel_table_pad: torch.Tensor | None = None
 
     @property
     def num_voxels(self) -> int:
@@ -161,14 +168,11 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
       key_pad: (lo, hi) sentinel rows around the key table.
       with_coverage: build the raw coverage grid; without it seg_pos and
         occupancy come from one packed scatter.
+      sel_coords: with with_keys, build the combined selection table
+        (`VoxelTable.sel_table_pad`, nv ≤ 32) in place of key_table_pad.
       row0: the clouds are rows [row0, row0 + B) of the batch whose key
         this is (one data-parallel rank's rows).
-    sel_coords (the combined selection table) is not ported.
     """
-    if sel_coords:
-        raise NotImplementedError(
-            "the combined selection table (sel_coords, for the "
-            "coord_match/coord_payload gathers) is not ported")
     B, N = xyz.shape[:2]
     V = resolution ** 3
     dev = xyz.device
@@ -211,7 +215,9 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
             V * nv, -1, torch.where(keep, sorted_vid * nv + col, V * nv),
             sorted_pidx).view(B, V, nv)
 
-    key_table = key_table_pad = None
+    # the points' coordinates in voxel-sorted order
+    coords = torch.gather(xyz, 1, sorted_pidx[..., None].expand(B, N, 3))
+    key_table = key_table_pad = sel_table_pad = None
     if with_keys:
         idx_bits = max(1, int(N - 1).bit_length())
         if idx_bits + COV_BITS + 1 > 29:
@@ -229,17 +235,33 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
         # unique, dropped points land on one discarded extra cell
         lo, hi = key_pad
         rows = lo + V + hi
-        key_table_pad = _scatter_cells(
-            rows * nv, 0, torch.where(keep, (sorted_vid + lo) * nv + col,
-                                      rows * nv),
-            keys.int()).view(B, rows, nv)
-        key_table = key_table_pad[:, lo:lo + V]
-        if lo == 0 and hi == 0:
-            key_table_pad = None
+        if not sel_coords:
+            key_table_pad = _scatter_cells(
+                rows * nv, 0, torch.where(keep, (sorted_vid + lo) * nv + col,
+                                          rows * nv),
+                keys.int()).view(B, rows, nv)
+            key_table = key_table_pad[:, lo:lo + V]
+            if lo == 0 and hi == 0:
+                key_table_pad = None
+        else:
+            # the combined selection table: the quad [key | x | y | z] of
+            # the point at (voxel, rank) at row voxel + lo, columns
+            # 4·rank .. 4·rank + 3 (the coordinates' f32 bits)
+            if nv > 32:
+                raise ValueError(f"sel_coords supports nv <= 32, got {nv}")
+            base = (sorted_vid + lo) * 128 + col * 4
+            dest = torch.cat([torch.where(keep, base + a, rows * 128)
+                              for a in range(4)], 1)
+            cbits = coords.float().view(torch.int32)
+            vals = torch.cat([keys.int(), cbits[..., 0], cbits[..., 1],
+                              cbits[..., 2]], 1)
+            sel_table_pad = _scatter_cells(rows * 128, 0, dest,
+                                           vals).view(B, rows, 128)
+            key_table = sel_table_pad.view(B, rows, 32, 4)[:, lo:lo + V,
+                                                           :nv, 0]
 
     # barycenter inputs: prefix sums of voxel-center residuals in sorted
     # order (residuals are ≤ vsize/2, so the f32 sum does not cancel)
-    coords = torch.gather(xyz, 1, sorted_pidx[..., None].expand(B, N, 3))
     sx, sy, sz = vid_to_coords(torch.clamp_max(sorted_vid, V - 1), resolution)
     vcenter = (torch.stack([sx, sy, sz], -1).to(xyz.dtype) + 0.5) \
         * vsize[:, None] + origin[:, None]
@@ -277,7 +299,8 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
                       occupancy=occupancy, point_vid=vid,
                       sorted_vid=sorted_vid, origin=origin, vsize=vsize,
                       resolution=resolution, nv=nv, slots=slots,
-                      coord_table=coord_table, coverage=coverage)
+                      coord_table=coord_table, coverage=coverage,
+                      sel_table_pad=sel_table_pad)
 
 
 def capacity_stats(table: VoxelTable) -> dict:

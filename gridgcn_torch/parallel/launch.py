@@ -6,7 +6,9 @@ runs `fn(*args, **kwargs)` in one worker process per device on localhost,
 the workers joined in one process group (gloo on the CPU; NCCL over
 distinct cards; see `mesh.backend_for`), and returns rank 0's result when
 every worker has returned; a worker that raises, dies or outlives the
-timeout makes it raise. Under `torchrun` (the environment already
+timeout makes it raise (a training run passes `timeout_s=None`: no wall
+deadline, while a collective that waits longer than `mesh.TIMEOUT_S`
+still fails). Under `torchrun` (the environment already
 describes a group) it joins that group and runs `fn` in this process
 instead, so the CLIs' `--mesh N` keeps the JAX package's one-command form
 either way. `fn` must be importable (a module-level function) and its
@@ -21,6 +23,8 @@ import time
 
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from typing import Optional
 
 from gridgcn_torch.parallel.mesh import (
     TIMEOUT_S, backend_for, init_distributed)
@@ -46,13 +50,17 @@ def _worker(rank: int, world: int, port: int, devices, timeout_s: float,
         dist.destroy_process_group()
 
 
-def launch(fn, devices, *args, timeout_s: float = TIMEOUT_S, **kwargs):
+def launch(fn, devices, *args, timeout_s: Optional[float] = TIMEOUT_S,
+           **kwargs):
     """Run fn(*args, **kwargs) on every rank of a mesh with one rank per
     entry of `devices` (`mesh.mesh_devices`). Returns rank 0's result (this
-    process's under an existing group or torchrun)."""
+    process's under an existing group or torchrun). `timeout_s` bounds
+    the workers' wall time and their collectives' waits (None: no wall
+    deadline, collectives `mesh.TIMEOUT_S`; the training loops pass it)."""
     devices = list(devices)
     world = len(devices)
-    if dist.is_initialized() or init_distributed(devices, timeout_s):
+    group_timeout = TIMEOUT_S if timeout_s is None else timeout_s
+    if dist.is_initialized() or init_distributed(devices, group_timeout):
         if dist.get_world_size() != world:
             raise ValueError(f"a {world}-rank mesh under a group of "
                              f"{dist.get_world_size()} processes")
@@ -60,10 +68,10 @@ def launch(fn, devices, *args, timeout_s: float = TIMEOUT_S, **kwargs):
     backend_for(devices)                # refuse unknown devices early
     results = mp.get_context("spawn").SimpleQueue()
     ctx = mp.start_processes(
-        _worker, args=(world, _free_port(), devices, timeout_s, results, fn,
-                       args, kwargs),
+        _worker, args=(world, _free_port(), devices, group_timeout, results,
+                       fn, args, kwargs),
         nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout_s
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     out = []
     try:
         done = False
@@ -71,7 +79,8 @@ def launch(fn, devices, *args, timeout_s: float = TIMEOUT_S, **kwargs):
             done = ctx.join(timeout=1.0)
             while not results.empty():   # drain before the workers exit
                 out.append(results.get())
-            if not done and time.monotonic() > deadline:
+            if not done and deadline is not None and \
+                    time.monotonic() > deadline:
                 raise TimeoutError(f"mesh workers ran past {timeout_s} s")
     finally:
         for p in ctx.processes:

@@ -150,6 +150,19 @@ def calibrate_ghost_cap(cfg: Config, xyz: np.ndarray, mask: np.ndarray,
     return tuple(caps)
 
 
+def ghost_caps(ghost_cap, n_layers: int) -> tuple:
+    """Each level's ghost rows per face from a `ghost_cap` argument: an int
+    for every level, or a sequence with one entry per level (0: the
+    level's whole per-shard share)."""
+    caps = (tuple(int(c) for c in ghost_cap)
+            if isinstance(ghost_cap, (tuple, list, np.ndarray))
+            else (int(ghost_cap),) * n_layers)
+    if len(caps) != n_layers:
+        raise ValueError(f"ghost_cap sequence needs {n_layers} entries, "
+                         f"got {len(caps)}")
+    return caps
+
+
 def make_resident_ml_forward(cfg: Config, mesh: Mesh, ghost_cap=0,
                              axis_name: str = DATA_AXIS,
                              train: bool = False,
@@ -193,12 +206,7 @@ def make_resident_ml_forward(cfg: Config, mesh: Mesh, ghost_cap=0,
                              f"divisible by {D} shards")
     specs = [dataclasses.replace(layer, n_centers=layer.n_centers // D)
              for layer in cfg.model.layers]
-    caps = (tuple(int(c) for c in ghost_cap)
-            if isinstance(ghost_cap, (tuple, list, np.ndarray))
-            else (int(ghost_cap),) * n_layers)
-    if len(caps) != n_layers:
-        raise ValueError(f"ghost_cap sequence needs {n_layers} entries, "
-                         f"got {len(caps)}")
+    caps = ghost_caps(ghost_cap, n_layers)
     if batch_axis is not None and debug_capture:
         raise ValueError("batch_axis (2-D mesh) resident-ml forward does "
                          "not support debug_capture")

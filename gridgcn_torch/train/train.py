@@ -103,7 +103,7 @@ def train(cfg: Config, log_path: str | None = None,
     if mesh_devices and not dist.is_initialized():
         return launch(_train_worker, pmesh.mesh_devices(device, mesh_devices),
                       cfg, log_path, tensorboard_dir, auto_capacity, device,
-                      mesh_devices)
+                      mesh_devices, timeout_s=None)
     mesh = (pmesh.make_mesh(mesh_devices,
                             pmesh.mesh_devices(device, mesh_devices))
             if mesh_devices else None)
@@ -240,7 +240,7 @@ def train_spatial(cfg: Config, mesh_devices: int,
                       pmesh.mesh_devices(device, mesh_devices), cfg,
                       mesh_devices, log_path, capacity, tier,
                       tensorboard_dir, ghost_cap, auto_capacity, scene_batch,
-                      device)
+                      device, timeout_s=None)
     from gridgcn_torch.parallel.resident_ml import calibrate_ghost_cap
     from gridgcn_torch.parallel.spatial_train import (
         make_spatial_train_step, shard_scene_batch, shard_scene_batches)

@@ -288,6 +288,8 @@ def test_check_target_matches_jax(capsys, name, summary, code):
 
 
 def test_accuracy_targets_are_a_copy():
+    """The port's targets are the JAX package's, value for value; the port
+    adds only its own runs on the card (`measured_h100*` keys)."""
     import os
 
     import gridgcn_tpu.train as jtrain_pkg
@@ -297,6 +299,8 @@ def test_accuracy_targets_are_a_copy():
                           "accuracy_targets.json")
              for p in (jtrain_pkg, ttrain_pkg)]
     a, b = (json.load(open(f)) for f in files)
+    b = {k: ({f: x for f, x in v.items() if not f.startswith("measured_h100")}
+             if isinstance(v, dict) else v) for k, v in b.items()}
     assert a == b
 
 

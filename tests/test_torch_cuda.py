@@ -334,3 +334,59 @@ def test_kernels_at_other_list_lengths(cuda, k, nq):
     same = (im == ir) & vm
     assert same.sum() >= 0.999 * vm.sum()
     assert (dm - dr).abs()[same].max() <= 1e-3
+
+
+@pytest.mark.parametrize("k", [17, 32, 128])
+@pytest.mark.parametrize("nq", [300, 1000, 70000])
+def test_list_kernels_for_long_lists(cuda, k, nq):
+    """17 ≤ k ≤ 128 take the list kernels (one build, `-DKNN_K=0`, lists
+    in shared memory): knn3_exact bit for bit its plain version,
+    knn3_mxu the same validity and, where its neighbours agree with the
+    plain version's, d² within 1e-3; each lane-group width of
+    knn3_exact (few and many queries); k = 129 refused."""
+    args = _inputs(cuda, nq, 3000, 60 + k)
+    _bit_equal(knn.knn3_exact(*args, k=k), knn.knn3_exact_ref(*args, k=k))
+    dm, im, vm = knn.knn3_mxu(*args, k=k)
+    dr, ir, vr = knn.knn3_mxu_ref(*args, k=k)
+    assert dm.shape == (nq, k) and torch.equal(vm, vr)
+    same = (im == ir) & vm
+    assert same.sum() >= 0.999 * vm.sum()
+    assert (dm - dr).abs()[same].max() <= 1e-3
+    with pytest.raises(ValueError, match="128-lane"):
+        knn.knn3_exact(*args, k=129)
+
+
+@pytest.mark.parametrize("flag", ["coord_match", "coord_payload"])
+def test_coord_gathers_on_cuda_equal_the_packed_path(cuda, flag):
+    """CAGQ with the combined selection table (coord_match, coord_payload)
+    on the card: every GroupedNodes field bit for bit the default packed
+    path's on the card, and every index field and node_xyz bit for bit
+    the CPU's (the barycenters within 1e-5: f32 prefix sums in another
+    order)."""
+    import dataclasses
+
+    from gridgcn_torch.configs import presets
+    from gridgcn_torch.data.synthetic import synthetic_scene_surface
+    from gridgcn_torch.ops.cagq import cagq
+    from gridgcn_torch.utils import jaxrng
+
+    spec = presets.scannet_whole_scene().model.layers[0]
+    flagged = dataclasses.replace(spec, **{flag: True})
+    xyz = torch.as_tensor(synthetic_scene_surface(16384, seed=5))[None]
+    mask = torch.ones((1, 16384), dtype=torch.bool)
+    key = jaxrng.PRNGKey(3)
+    base = cagq(xyz.to(cuda), mask.to(cuda), spec, key).groups
+    got = cagq(xyz.to(cuda), mask.to(cuda), flagged, key).groups
+    cpu = cagq(xyz, mask, flagged, key).groups
+    for f in dataclasses.fields(got):
+        a, b, c = (getattr(g, f.name) for g in (got, base, cpu))
+        if not torch.is_tensor(a):
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f.name
+        if f.name == "center_xyz":
+            assert (getattr(got, f.name).cpu() - c).abs().max() <= 1e-5
+        else:
+            assert torch.equal(a.cpu(), c.view(torch.int32)
+                               if c.dtype == torch.float32 else c), f.name

@@ -249,22 +249,77 @@ def test_mxu_ref_any_k_meets_pallas_gates(k):
 
 
 def test_k_above_the_kernels_limit_raises():
-    """The kernels are instantiated for k ≤ MAX_K (16); a longer list is
-    refused with the limit named, on either device; the plain versions
-    take it."""
+    """The kernels take k ≤ MAX_K (128), the reference's bound (its
+    kernels write or fold their winners into 128-lane rows); a longer
+    list is refused with that limit named, on either device; the plain
+    versions take it."""
+    assert tknn.MAX_K == 128
     rng = np.random.default_rng(0)
     q = torch.from_numpy(_cloud(rng, 40, 0, 1))
     s = torch.from_numpy(_cloud(rng, 200, 0, 1))
     qm, sm = torch.ones(40, dtype=torch.bool), torch.ones(200, dtype=torch.bool)
     for fn in (tknn.knn3_mxu, tknn.knn3_exact):
-        with pytest.raises(ValueError, match="k <= 16"):
-            fn(q, qm, s, sm, k=17)
-        with pytest.raises(ValueError, match="k <= 16"):
+        with pytest.raises(ValueError, match="k <= 128.*128-lane"):
+            fn(q, qm, s, sm, k=129)
+        with pytest.raises(ValueError, match="k <= 128"):
             fn(q, qm, s, sm, k=0)
+        assert fn(q, qm, s, sm, k=128)[1].shape == (40, 128)
     with pytest.raises(ValueError, match="MAX_K"):
-        tknn.flash_three_nn(q[None], qm[None], s[None], sm[None], k=17)
-    assert tknn.knn3_exact_ref(q, qm, s, sm, 20)[1].shape == (40, 20)
-    assert tknn.knn3_mxu_ref(q, qm, s, sm, 20)[1].shape == (40, 20)
+        tknn.flash_three_nn(q[None], qm[None], s[None], sm[None], k=129)
+    assert tknn.knn3_exact_ref(q, qm, s, sm, 150)[1].shape == (40, 150)
+    assert tknn.knn3_mxu_ref(q, qm, s, sm, 150)[1].shape == (40, 150)
+
+
+@pytest.fixture(scope="module")
+def long_lists():
+    """256 × 200 clouds on the 2⁻⁸ grid (exact arithmetic; the last 20
+    supports masked) and the JAX kernels' answers at k = 128 in interpret
+    mode. Both kernels emit their winners in order, one pass each, so the
+    first k columns are their answers for k (the exact kernel's
+    exclusion loop costs k² passes: one call serves every k)."""
+    rng = np.random.default_rng(17)
+    q = _cloud(rng, 256, 0, 1, 2.0 ** -8)
+    s = _cloud(rng, 200, 0, 1, 2.0 ** -8)
+    qm, sm = np.arange(256) < 240, np.arange(200) < 180
+    return ((q, qm, s, sm), _jax_k(flash_knn, q, qm, s, sm, 128),
+            _jax_k(flash_knn_mxu, q, qm, s, sm, 128))
+
+
+def _port_k(fn, args, k):
+    return [o.numpy() for o in fn(*map(torch.from_numpy, args), k=k)]
+
+
+@pytest.mark.parametrize("k", [17, 32, 128])
+def test_exact_ref_long_lists_are_bit_exact(long_lists, k):
+    """The exact plain version for the list kernels' k (17..128) against
+    `flash_knn(k=k)`: distances, indices and validity bit for bit."""
+    args, (dj, ij, vj), _ = long_lists
+    dt, it, vt = _port_k(tknn.knn3_exact, args, k)
+    assert dt.shape == (256, k)
+    np.testing.assert_array_equal(dj[:, :k].view(np.int32), dt.view(np.int32))
+    np.testing.assert_array_equal(ij[:, :k], it)
+    np.testing.assert_array_equal(vj[:, :k], vt)
+
+
+@pytest.mark.parametrize("k", [17, 32, 128])
+def test_mxu_ref_long_lists_meet_pallas_gates(long_lists, k):
+    """The mxu plain version for the list kernels' k against
+    `flash_knn(k=k)`: validity equal, recall ≥ 0.99, top-1 ≥ 0.99, |Δd²|
+    < 2e-2 on matching neighbours, no masked support among the valid
+    winners; and against `flash_knn_mxu(k=k)` (whose 128-lane fold loses
+    a j-th neighbour to a nearer one in its lane) the same nearest one."""
+    args, (de, ie, ve), (_, ij, _) = long_lists
+    de, ie, ve, ij = de[:, :k], ie[:, :k], ve[:, :k], ij[:, :k]
+    dm, im, vm = _port_k(tknn.knn3_mxu, args, k)
+    assert dm.shape == (256, k)
+    np.testing.assert_array_equal(ve, vm)
+    assert np.all(im[vm] < 180)
+    rows = np.flatnonzero(args[1])
+    recall = np.mean([len(set(ie[i]) & set(im[i])) / k for i in rows])
+    assert recall >= 0.99, recall
+    assert (ie[rows, 0] == im[rows, 0]).mean() >= 0.99
+    assert np.abs(dm - de)[(ie == im) & vm].max() < 2e-2
+    assert (ij[rows, 0] == im[rows, 0]).mean() >= 0.99
 
 
 def test_k_interp_4_pallas_forward_matches_jax():

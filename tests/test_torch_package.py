@@ -148,6 +148,34 @@ def test_parallel_export_and_fps_modules_are_in_the_standalone_check():
         assert m in MODULES, m
 
 
+def test_audit_dryrun_and_convergence_stand_alone():
+    """The communication audit, the card's figures and the dry run are
+    among the modules the standalone check imports; the convergence
+    script and chip_smoke.py import no JAX and nothing of the JAX
+    package either (chip_smoke.py names the TPU kernels its kernels
+    replace, as its kernels line must)."""
+    for m in ("gridgcn_torch.parallel.comm_audit", "gridgcn_torch.utils.hw",
+              "gridgcn_torch.dryrun"):
+        assert m in MODULES, m
+    files = [REPO / "scripts" / "convergence_torch.py", REPO / "chip_smoke.py"]
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, f in enumerate({[str(f) for f in files]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'm{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'gridgcn_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for f in files:
+        text = f.read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
+                             r"gridgcn_tpu)\b", text, re.M), f
+
+
 def test_configs_are_a_copy_of_the_jax_presets():
     from gridgcn_tpu.configs import base as jbase
     from gridgcn_tpu.configs import presets as jpresets
