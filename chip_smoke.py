@@ -112,6 +112,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -123,9 +124,13 @@ from gridgcn_torch.utils.hw import (
     BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S)
 # the kNN list lengths other than the decoder's 3 that the kernel phase
 # holds (any_k_phase): the register kernels' shortest, a middle and their
-# longest, then two of the list kernels' (up to the reference's 128)
+# longest, then two of the list kernels' (up to the reference's 128),
+# timed on the main path's calls; the list kernels are also held at two
+# lengths that are not multiples of 32
 ANY_K = (1, 8, 16)
 LONG_K = (32, 128)
+LIST_K = (17, 32, 100, 128)
+LIST_THREADS = 256   # threads a block of knn.cu's list kernels
 
 
 def card_line() -> str:
@@ -176,6 +181,32 @@ def spills(log: str) -> dict[str, tuple[int, int]]:
             out[name] = (int(words[words.index("spill") - 2]),
                          int(words[words.index("loads") - 3]))
     return out
+
+
+def kernel_resources(log: str) -> dict[str, tuple[int, int]]:
+    """{kernel: (registers a thread, static shared bytes a block)} from
+    nvcc's `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line and name is not None:
+            words = line.replace(",", " ").split()
+            smem = int(words[words.index("smem") - 2]) if "smem" in words \
+                else 0
+            out[name] = (int(words[words.index("registers") - 1]), smem)
+    return out
+
+
+def resident_warps(registers: int, shared: int, threads: int) -> int:
+    """Warps of a kernel that an H100 SM holds at once: 65536 registers,
+    given a warp at a time in units of 256; 228 KB of shared memory, 1 KB
+    of it reserved a block; at most 64 warps and 32 blocks."""
+    warps = threads // 32
+    warp_regs = -(-registers * 32 // 256) * 256
+    blocks = min(65536 // (warp_regs * warps), 233472 // (shared + 1024),
+                 64 // warps, 32)
+    return blocks * warps
 
 
 def decoder_inputs(torch, cfg, sd, xyz, jaxrng, fold_inference,
@@ -1823,13 +1854,14 @@ def dp_phase(torch, np, knn, presets, init_model, build_model, steps,
     assert t1.shape == (81920, 21) and np.isfinite(t1).all()
 
 
-def list_length_record(torch, knn, k, cases, main):
+def list_length_record(torch, knn, k, cases, main, grid=()):
     """Both kernels at list length k on each case (args): knn3_exact bit
     for bit its plain version, knn3_mxu at the kernel phase's any-k gates
-    against its plain version (agree 0.999, |d| 1e-3) and against
-    knn3_exact (recall 0.97, top-1 0.99); with CUDA-event times. Returns
-    {name: record} summed over the cases for which main(args) is true,
-    with the kernels-line keys (times, bounds, library call)."""
+    against its plain version (agree 0.999, |d| 1e-3; bit for bit on the
+    cases in `grid`) and against knn3_exact (recall 0.97, top-1 0.99).
+    The cases for which main(args) is true are timed with CUDA events;
+    returns {name: record} summed over them, with the kernels-line keys
+    (times, bounds, library call)."""
     rec = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
            for n in ("knn3_mxu", "knn3_exact")}
@@ -1845,6 +1877,11 @@ def list_length_record(torch, knn, k, cases, main):
         assert torch.equal(de.view(torch.int32), dx.view(torch.int32)) \
             and torch.equal(ie, ix) and torch.equal(ve, vx), \
             f"knn3_exact k={k} differs from its plain version at {nq}x{ns}"
+        on_grid = any(args is g for g in grid)
+        if on_grid:
+            assert torch.equal(dm.view(torch.int32), dr.view(torch.int32)) \
+                and torch.equal(im, ir) and torch.equal(vm, vr), \
+                f"knn3_mxu k={k} not bit exact on the grid at {nq}x{ns}"
         assert torch.equal(vm, vr) and torch.equal(vm, ve), (k, nq, ns)
         same = (im == ir) & vm
         agree = same.sum().item() / max(vm.sum().item(), 1)
@@ -1855,6 +1892,17 @@ def list_length_record(torch, knn, k, cases, main):
         top1 = (im[rows, 0] == ie[rows, 0]).float().mean().item()
         assert agree >= 0.999 and err <= 1e-3, (k, nq, ns, agree, err)
         assert recall >= 0.97 and top1 >= 0.99, (k, nq, ns, recall, top1)
+        errs = {"knn3_mxu": err, "knn3_exact": (de - dx).abs().max().item()}
+        for n, r in rec.items():
+            r["max_abs_err"] = max(r["max_abs_err"], errs[n])
+        line = (f"kernel k={k} {nq}x{ns}{' grid' if on_grid else ''}: "
+                f"knn3_exact bit for bit its plain version; knn3_mxu "
+                f"{'bit for bit, ' if on_grid else ''}vs plain agree "
+                f"{agree:.6f} err {err:.3g}, vs exact recall {recall:.5f} "
+                f"top1 {top1:.5f}")
+        if not main(args):
+            print(line)
+            continue
         pairs = nq * ns
         iters = 3 if pairs > 1e8 else 10
         ms = {n: cuda_ms(torch, lambda f=getattr(knn, n): f(*args, k=k),
@@ -1866,44 +1914,47 @@ def list_length_record(torch, knn, k, cases, main):
         bytes_ms = (nq * 13 + ns * 13 + nq * k * 9) / HBM_BYTES_PER_S * 1e3
         ops_ms = {"knn3_mxu": pairs * 32 / BF16_OPS_PER_S * 1e3,
                   "knn3_exact": pairs * 8 / FP32_OPS_PER_S * 1e3}
-        errs = {"knn3_mxu": err, "knn3_exact": (de - dx).abs().max().item()}
-        print(f"kernel k={k} {nq}x{ns}: knn3_exact bit for bit its plain "
-              f"version, ms {ms['knn3_exact']:.4f} (plain "
-              f"{plain['knn3_exact']:.4f}); knn3_mxu vs plain agree "
-              f"{agree:.6f} err {err:.3g}, vs exact recall {recall:.5f} top1 "
-              f"{top1:.5f}, ms {ms['knn3_mxu']:.4f} (plain "
+        print(f"{line}; ms exact {ms['knn3_exact']:.4f} (plain "
+              f"{plain['knn3_exact']:.4f}), mxu {ms['knn3_mxu']:.4f} (plain "
               f"{plain['knn3_mxu']:.4f}); library {library:.4f}")
         for n, r in rec.items():
-            r["max_abs_err"] = max(r["max_abs_err"], errs[n])
-            if main(args):
-                r["ms"] += ms[n]
-                r["plain_ms"] += plain[n]
-                r["library_ms"] += library
-                r["bytes_ms"] += bytes_ms
-                r["ops_ms"] += ops_ms[n]
-                r["bound_ms"] += max(bytes_ms, ops_ms[n])
+            r["ms"] += ms[n]
+            r["plain_ms"] += plain[n]
+            r["library_ms"] += library
+            r["bytes_ms"] += bytes_ms
+            r["ops_ms"] += ops_ms[n]
+            r["bound_ms"] += max(bytes_ms, ops_ms[n])
     return rec
 
 
 def any_k_phase(torch, knn, ragged, main_calls):
     """Both kernels at list lengths other than the decoder's 3: ANY_K
-    (the register kernels) on one ragged, masked shape, LONG_K (the list
-    kernels) on the main path's four decoder calls and the ragged shape,
-    each held as `list_length_record` holds them; k = 129 refused.
-    Returns {(name, k): record}, the LONG_K records summed over the four
-    main calls."""
+    (the register kernels) on one ragged, masked shape; the list kernels
+    at LIST_K on the ragged shape, on 2 valid supports of 200 (k - 2
+    entries that only the column orders) and on the grid (exact sums, ties
+    everywhere: knn3_mxu bit for bit) at 300 and 70000 queries, and at
+    LONG_K on the main path's four decoder calls too, timed; each held as
+    `list_length_record` holds them; k = 129 refused. Returns {(name, k):
+    record}, the LONG_K records summed over the four main calls."""
     out = {}
     for k in ANY_K:
         rec = list_length_record(torch, knn, k, [ragged], lambda a: True)
         out.update({(n, k): r for n, r in rec.items()})
-    for k in LONG_K:
-        rec = list_length_record(torch, knn, k, main_calls + [ragged],
-                                 lambda a: a is not ragged)
+    grid = [grid_inputs(torch, nq, 2048, 5) for nq in (300, 70000)]
+    checks = [ragged, ragged_inputs(torch, 300, 200, 2, 2)] + grid
+    for k in LIST_K:
+        timed = main_calls if k in LONG_K else []
+        rec = list_length_record(torch, knn, k, checks + timed,
+                                 lambda a: any(a is m for m in timed), grid)
+        if k not in LONG_K:
+            continue
         out.update({(n, k): r for n, r in rec.items()})
         print(f"kernel k={k}, sum of the main path's 4 decoder calls: "
               + "; ".join(f"{n} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                           f"library {r['library_ms']:.4f} bound "
-                          f"{r['bound_ms']:.5f}" for n, r in rec.items()))
+                          f"{r['bound_ms']:.5f} ("
+                          f"{'beats' if r['ms'] < r['library_ms'] else 'loses to'}"
+                          f" the library)" for n, r in rec.items()))
     for fn in (knn.knn3_mxu, knn.knn3_exact):
         try:
             fn(*ragged, k=knn.MAX_K + 1)
@@ -2629,8 +2680,18 @@ def main() -> int:
             continue
         for line in log.splitlines():
             if ("registers" in line or "Compiling" in line or "smem" in line
-                    or "spill" in line):
+                    or "spill" in line or line.startswith("nvcc:")):
                 print(f"  {src}: {line.strip()}")
+    # the list kernels' occupancy (both run LIST_THREADS a block, with
+    # static shared memory only)
+    for name, (regs, smem) in kernel_resources(
+            logs[f"knn.cu k=17..{knn.MAX_K}"]).items():
+        m = re.search(r"(knn_list_\w+_kernel)ILi(\d)E", name)
+        if m:
+            print(f"{m[1]}<{m[2]}>: {regs} registers, {smem} B shared a "
+                  f"block of {LIST_THREADS}, "
+                  f"{resident_warps(regs, smem, LIST_THREADS)} resident "
+                  f"warps an SM")
     # the main path's instantiations (the k = 3 build) must not spill; the
     # other list lengths' spills are printed
     report = {k: v for log in logs.values() for k, v in spills(log).items()}

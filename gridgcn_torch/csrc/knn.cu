@@ -18,7 +18,8 @@
 // and its instantiation is the design described below. Lists of 17..128
 // (the reference's bound: its kernels write or fold their winners into
 // 128-lane rows) take the list kernels at the end of this file instead:
-// one build, k a runtime argument, each list sorted in shared memory.
+// one build, k a runtime argument, each list a warp queue spread over the
+// registers of a warp's 32 lanes (WarpSelect).
 // At the main path's largest call (Nq 81920 x Ns 8192, 6.7e8 pairs) the
 // inputs and outputs are ~5 MB (~1.5 us at 3.35 TB/s), so both kernels are
 // bound by operations, not by memory:
@@ -734,56 +735,243 @@ int mxu_launch(const float* q, const uint8_t* q_mask, const uint4* pack,
 #if KNN_K == 0
 // ------------------------------------------------------------------------
 // The list kernels: 17 <= k <= kMaxListK, k a runtime argument. A list of
-// up to 128 does not fit in registers, so each lane keeps its sorted list
-// in shared memory (entry j of lane l at [j * lanes + l]: the lanes of a
-// warp touch 32 banks) and its tail in registers; a candidate that beats
-// the tail is inserted by moving the entries it precedes down one. In a
-// random visit order a list of k over n candidates takes about
-// k * ln(n / k) inserts, so the shifts cost less than the pairs' distances
-// at the decoder's sizes. Both kernels keep the register kernels' key
-// packing, visit order and tie rules, so they give their plain versions'
-// answers (knn3_exact_ref bit for bit).
+// up to 128 does not fit in one lane's registers, so it is spread over a
+// warp (WarpSelect: Johnson, Douze & Jegou, "Billion-scale similarity
+// search with GPUs", section 4). Each query's running top-k is a warp
+// queue of 32 * P keys sorted across the 32 lanes (slot r * 32 + lane in
+// register r of that lane; P = ceil(k / 32) rounded up to a power of two
+// for the bitonic networks, so 65..96 take four registers like 97..128),
+// and each lane keeps a thread queue of T candidates in registers. A
+// candidate is compared once with the queue's k-th key (the threshold, the
+// same in every lane) and pushed only if it is smaller. When a thread
+// queue is full somewhere in the warp (__any_sync), the warp merges: a
+// bitonic sort of the 32 * T queued keys over shuffles, the lowest 32 * P
+// of both sets by one min against the reversed sort, a bitonic merge, and
+// a new threshold. No list lives in shared memory and no lane branches for
+// longer than a push. Keys are unique (each carries its column), so the
+// result is the k smallest in order whatever the visit order:
+// knn3_exact_ref bit for bit, and knn3_mxu_ref's ties to the lower column.
+// Both kernels run 8 warps a block and kListQ = 4 queries a warp, lanes
+// across the columns, 16 resident warps an SM. At the main path's 81920 x
+// 8192 and k = 128 a query makes ~700-900 pushes (k * (1 + ln(n / k))
+// with a threshold that moves only at merges) and ~7-15 merges of ~30
+// shuffle stages each. On an H100 80GB HBM3 at 700 W (chip_smoke.py) the
+// four decoder calls at k = 128 take ~2.2 ms (exact) and ~5.2 ms (mxu),
+// against ~14.7 ms for torch.topk(torch.cdist(q, s), k) and 58 / 108 ms
+// for the lists in shared memory that these kernels replace.
 
-constexpr int kListThreads = 128;    // both list kernels: 4 warps a block
-constexpr int kListTile = 1024;      // exact: 1024 columns x 16 B = 16 KB
-constexpr int kListStage = 256;      // mxu: 256 packed columns x 32 B = 8 KB
-constexpr int kListChunk = 64;       // mxu: distances a warp stages at once
+constexpr int kListThreads = 256;   // both list kernels: 8 warps a block
+constexpr int kListQ = 4;           // queries a warp
+constexpr int kListQueries = kListThreads / 32 * kListQ;   // a block: 32
+// Thread-queue lengths (powers of two), the fastest of 2, 4 and 8 on an
+// H100 (PERF.md section 6)
+constexpr int kListTExact = 8;
+constexpr int kListTMxu = 4;
+constexpr int kListTile = 2048;     // exact: 2048 columns x 16 B = 32 KB
+constexpr int kListStage = 1024;    // mxu: 1024 packed columns x 32 B = 32 KB
+constexpr int kListRound = 64;      // mxu: columns a warp computes at once
+constexpr int kListRow = kListRound + 8;   // their row stride: no conflicts
 
-// Dynamic shared memory of the list kernels for a list of k.
-int list_exact_smem(int k) {
-  return k * kListThreads * 4 + kListTile * 16;
+// Warp-queue registers a lane holds for a list of k: ceil(k / 32) rounded
+// up to a power of two.
+int list_regs(int k) { return k <= 32 ? 1 : (k <= 64 ? 2 : 4); }
+
+template <class K>
+__device__ __forceinline__ K key_min(K a, K b) { return b < a ? b : a; }
+template <class K>
+__device__ __forceinline__ K key_max(K a, K b) { return b < a ? a : b; }
+
+// One compare-exchange of a bitonic network across lanes: this lane's key
+// and the one of lane ^ j (j < 32); the lower lane of the pair keeps the
+// smaller in an ascending run (`up`), the larger in a descending one.
+template <class K>
+__device__ __forceinline__ K lane_exchange(K v, int j, bool up) {
+  const K o = __shfl_xor_sync(0xFFFFFFFFu, v, j);
+  const bool lower = (threadIdx.x & j) == 0;
+  return lower == up ? key_min(v, o) : key_max(v, o);
 }
-int list_mxu_smem(int k) {
-  return 2 * kListStage * 32 + (kListThreads / 32) * 32 * (kListChunk + 1) * 4 +
-         k * kListThreads * 8;
+
+// Compare-exchange of registers a < b of every lane: b keeps the larger.
+template <class K>
+__device__ __forceinline__ void reg_exchange(K& a, K& b, bool up) {
+  const K lo = key_min(a, b), hi = key_max(a, b);
+  a = up ? lo : hi;
+  b = up ? hi : lo;
+}
+
+// Bitonic sort, ascending, of the warp's 32 * R keys v[r] (element r * 32
+// + lane): distances below 32 are shuffles, above it register pairs.
+template <class K, int R>
+__device__ __forceinline__ void warp_sort(K (&v)[R]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 2; kk <= 32 * R; kk <<= 1) {
+#pragma unroll
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (j < 32) {
+          v[r] = lane_exchange(v[r], j, ((r * 32 + lane) & kk) == 0);
+        } else if ((r & (j / 32)) == 0) {
+          reg_exchange(v[r], v[r | (j / 32)], ((r * 32) & kk) == 0);
+        }
+      }
+    }
+  }
+}
+
+// w (32 * P keys, sorted) becomes the lowest 32 * P of w and c (32 * T
+// keys, sorted): the element-wise min of w and c reversed is a bitonic
+// sequence of exactly those keys (c counts as the largest key past its
+// end), which a bitonic merge sorts.
+template <class K, int P, int T>
+__device__ __forceinline__ void warp_merge(K (&w)[P], const K (&c)[T]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    if (P - 1 - r < T) {
+      w[r] = key_min(w[r], __shfl_sync(0xFFFFFFFFu, c[P - 1 - r], 31 - lane));
+    }
+  }
+#pragma unroll
+  for (int j = 16 * P; j > 0; j >>= 1) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      if (j < 32) {
+        w[r] = lane_exchange(w[r], j, true);
+      } else if ((r & (j / 32)) == 0) {
+        reg_exchange(w[r], w[r | (j / 32)], true);
+      }
+    }
+  }
+}
+
+// One query's selection state in a warp: the warp queue, this lane's
+// thread queue (`fill` keys, the newest first, the largest key past them)
+// and the threshold, the warp queue's k-th key.
+template <class K, int P, int T>
+struct WarpSelect {
+  K w[P];
+  K tq[T];
+  K thr;
+  int fill;
+
+  __device__ __forceinline__ void init(K big) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) w[r] = big;
+#pragma unroll
+    for (int t = 0; t < T; ++t) tq[t] = big;
+    thr = big;
+    fill = 0;
+  }
+
+  __device__ __forceinline__ void push(K key) {
+#pragma unroll
+    for (int t = T - 1; t > 0; --t) tq[t] = tq[t - 1];
+    tq[0] = key;
+    ++fill;
+  }
+};
+
+// The whole warp merges the thread queues of query h (warp-uniform) into
+// its warp queue and takes the new threshold, the k-th key. The query's
+// keys are selected into one working copy and back, so the kernel holds
+// one copy of the merge's code: a copy for each query (64-bit keys) left
+// the visit loop no room in the instruction cache and ran 2-5x slower.
+template <class K, int P, int T>
+__device__ __forceinline__ void merge_query(
+    WarpSelect<K, P, T> (&sel)[kListQ], int h, int k, K big) {
+  K w[P], c[T];
+#pragma unroll
+  for (int r = 0; r < P; ++r) w[r] = sel[0].w[r];
+#pragma unroll
+  for (int t = 0; t < T; ++t) c[t] = sel[0].tq[t];
+#pragma unroll
+  for (int i = 1; i < kListQ; ++i) {
+    if (i == h) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) w[r] = sel[i].w[r];
+#pragma unroll
+      for (int t = 0; t < T; ++t) c[t] = sel[i].tq[t];
+    }
+  }
+  warp_sort(c);
+  warp_merge(w, c);
+  const int kr = (k - 1) >> 5;
+  K x = w[0];
+#pragma unroll
+  for (int r = 1; r < P; ++r) {
+    if (r == kr) x = w[r];
+  }
+  const K thr = __shfl_sync(0xFFFFFFFFu, x, (k - 1) & 31);
+#pragma unroll
+  for (int i = 0; i < kListQ; ++i) {
+    if (i == h) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) sel[i].w[r] = w[r];
+#pragma unroll
+      for (int t = 0; t < T; ++t) sel[i].tq[t] = big;
+      sel[i].thr = thr;
+      sel[i].fill = 0;
+    }
+  }
+}
+
+// Merge each query whose thread queue is full in some lane (`last`: each
+// that holds any key); true if any did. One vote when none is.
+template <class K, int P, int T>
+__device__ __forceinline__ bool merge_full(
+    WarpSelect<K, P, T> (&sel)[kListQ], int k, K big, bool last = false) {
+  const int need = last ? 1 : T;
+  bool full = false;
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) full |= sel[h].fill >= need;
+  if (!__any_sync(0xFFFFFFFFu, full)) return false;
+  unsigned todo = 0u;
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) {
+    if (__any_sync(0xFFFFFFFFu, sel[h].fill >= need)) todo |= 1u << h;
+  }
+#pragma unroll 1
+  while (todo != 0u) {
+    const int h = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    merge_query(sel, h, k, big);
+  }
+  return true;
 }
 
 // knn3_exact for 17 <= k <= 128 (replaces the JAX package's ops/pallas/
-// knn.py _knn_kernel at those k): knn3_exact_kernel's staged tile, keys
-// and group threshold; G lanes share a query and each keeps a list of the
-// keys it visited; the group's lists are merged by k shuffle-min passes.
-__global__ void __launch_bounds__(kListThreads)
+// knn.py _knn_kernel at those k): knn3_exact_kernel's staged tile (the
+// visit order p -> p * step mod ns_pad), rounded arithmetic and packed
+// keys. Warp w of the block owns kListQ queries; lane l visits tile slots
+// l, l + 32, ..., so one float4 read from shared memory feeds kListQ
+// distance chains. A pair's d2 first meets a float test that passes every
+// key below the query's threshold once the low idx_bits are cut (and NaN,
+// the bound while the queue is not full); only then is its key packed and
+// compared.
+template <int P>
+__global__ void __launch_bounds__(kListThreads, 2)
 knn_list_exact_kernel(const float* __restrict__ q,
                       const uint8_t* __restrict__ q_mask,
                       const float* __restrict__ s,
                       const uint8_t* __restrict__ s_mask, int nq, int ns,
-                      int ns_pad, int idx_bits, int step, int k, int G,
+                      int ns_pad, int idx_bits, int step, int k,
                       float* __restrict__ out_d, int* __restrict__ out_i,
                       uint8_t* __restrict__ out_v) {
-  extern __shared__ __align__(16) unsigned char list_smem[];
-  float4* tile = reinterpret_cast<float4*>(list_smem);
-  int* lst = reinterpret_cast<int*>(tile + kListTile) + threadIdx.x;
-  const int lig = threadIdx.x % G;
-  const int qi = blockIdx.x * (kListThreads / G) + threadIdx.x / G;
+  __shared__ float4 tile[kListTile];
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kListQueries + (threadIdx.x / 32) * kListQ;
   const int low = (1 << idx_bits) - 1;
-  for (int j = 0; j < k; ++j) lst[j * kListThreads] = kKeyMax;
-  int tail = kKeyMax;   // this lane's k-th key
-  int thr = kKeyMax;    // at most the group's lowest tail: what may enter
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (qi < nq) {
-    px = q[3 * qi];
-    py = q[3 * qi + 1];
-    pz = q[3 * qi + 2];
+  float p[kListQ][3];
+  float tf[kListQ];   // the largest d2 whose key, cut, can pass thr
+  WarpSelect<int, P, kListTExact> sel[kListQ];
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p[h][a] = q0 + h < nq ? q[3 * (q0 + h) + a] : 0.f;
+    sel[h].init(kKeyMax);
+    tf[h] = __int_as_float(kKeyMax);   // NaN: every d2 passes
   }
   const int stage_step = mul_mod(kListThreads % ns_pad, step, ns_pad);
   for (int c0 = 0; c0 < ns_pad; c0 += kListTile) {
@@ -803,52 +991,50 @@ knn_list_exact_kernel(const float* __restrict__ q,
       if (c >= ns_pad) c -= ns_pad;
     }
     __syncthreads();
-    for (int i = 0; i < n / G; ++i) {
-      const float4 v = tile[lig + i * G];
-      const float dx = __fsub_rn(px, v.x);
-      const float dy = __fsub_rn(py, v.y);
-      const float dz = __fsub_rn(pz, v.z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
+    float4 next = tile[lane];
+#pragma unroll 1
+    for (int i = 0; i < n / 32; ++i) {
+      const float4 v = next;
+      if (i + 1 < n / 32) next = tile[lane + 32 * (i + 1)];
       const int w = __float_as_int(v.w);
-      const int key =
-          pack_key(__float_as_int(w >= 0 ? d : kBig), ~low, w & low);
-      if (key < thr) {
-        int j = k - 1;
-        for (; j > 0; --j) {
-          const int prev = lst[(j - 1) * kListThreads];
-          if (prev < key) break;
-          lst[j * kListThreads] = prev;
+      const int col = w & low;
+#pragma unroll
+      for (int h = 0; h < kListQ; ++h) {
+        const float dx = __fsub_rn(p[h][0], v.x);
+        const float dy = __fsub_rn(p[h][1], v.y);
+        const float dz = __fsub_rn(p[h][2], v.z);
+        float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                            __fmul_rn(dz, dz));
+        d = w >= 0 ? d : kBig;
+        if (!(d > tf[h])) {
+          const int key = pack_key(__float_as_int(d), ~low, col);
+          if (key < sel[h].thr) sel[h].push(key);
         }
-        lst[j * kListThreads] = key;
-        tail = lst[(k - 1) * kListThreads];
-        thr = min(thr, tail);
       }
-      if (i % kShare == kShare - 1) {
-        int m = tail;
-        for (int off = G / 2; off > 0; off >>= 1) {
-          m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+      if (merge_full(sel, k, kKeyMax)) {
+#pragma unroll
+        for (int h = 0; h < kListQ; ++h) {
+          tf[h] = __int_as_float(sel[h].thr | low);
         }
-        thr = m;
       }
     }
   }
-  // merge the group's G lists: each pass takes the smallest head and the
-  // lane that holds it moves on to its next key
-  const bool qv = qi < nq && q_mask[qi] != 0;
-  int pos = 0;
-  for (int j = 0; j < k; ++j) {
-    const int head = pos < k ? lst[pos * kListThreads] : kKeyMax;
-    int m = head;
-    for (int off = G / 2; off > 0; off >>= 1) {
-      m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
-    }
-    if (head == m) ++pos;
-    if (lig == 0 && qi < nq) {
-      const float d = __int_as_float(m & ~low);
-      out_d[k * qi + j] = d;
-      out_i[k * qi + j] = m & low;
-      out_v[k * qi + j] = (qv && d < kValidMax) ? 1 : 0;
+  merge_full(sel, k, kKeyMax, true);
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) {
+    const int qi = q0 + h;
+    if (qi >= nq) break;
+    const bool qv = q_mask[qi] != 0;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int e = 32 * r + lane;
+      if (e < k) {
+        const int key = sel[h].w[r];
+        const float d = __int_as_float(key & ~low);
+        out_d[k * qi + e] = d;
+        out_i[k * qi + e] = key & low;
+        out_v[k * qi + e] = (qv && d < kValidMax) ? 1 : 0;
+      }
     }
   }
 }
@@ -869,123 +1055,119 @@ __device__ __forceinline__ float pair_value(unsigned long long key) {
 }
 
 // knn3_mxu for 17 <= k <= 128 (replaces _knn_kernel_mxu at those k): the
-// same packed supports (mxu_pack_kernel) and the same two mma.sync per n8
-// tile, so the same d2 + 1 bits. A warp owns 32 queries; it writes the d2
-// + 1 of kListChunk packed columns to shared memory, then each lane scans
-// its query's row and inserts (value, column) pairs, packed by pair_key,
-// in the order of three first-occurrence argmin passes (ties to the lower
-// column), as knn3_mxu_kernel and knn3_mxu_ref do; NaN never enters.
-__global__ void __launch_bounds__(kListThreads)
+// same packed supports (mxu_pack_kernel) and the same mma.sync per n8
+// tile, so the same d2 + 1 bits. The block stages kListStage packed
+// columns in shared memory at a time (the only barriers); warp w owns
+// kListQ queries, rows 0..3 of its A fragment (the other 12 rows zero), so
+// it needs no other warp's work: per kListRound columns it runs one mma
+// per n8 tile into a [kListQ x kListRound] buffer of its own, then selects
+// over it with lane l reading columns l, l + 32 (conflict-free). A block
+// that shares one (32 queries x 256 columns) tile, every mma row used,
+// ran slower on an H100 at k = 32 and 128, and slower still with
+// 128-column tiles: the time follows its barriers, one a tile (PERF.md
+// section 6). Keys are (value, column) packed by
+// pair_key: the order of first-occurrence argmin passes (ties to the lower
+// column), as knn3_mxu_kernel and knn3_mxu_ref; NaN never enters (the
+// float prefilter v <= the threshold's value fails on it).
+template <int P>
+__global__ void __launch_bounds__(kListThreads, 2)
 knn_list_mxu_kernel(const float* __restrict__ q,
                     const uint8_t* __restrict__ q_mask,
                     const uint4* __restrict__ pack,
                     const float* __restrict__ center, int nq, int ns,
                     int ns_pad, int step, int k, float* __restrict__ out_d,
                     int* __restrict__ out_i, uint8_t* __restrict__ out_v) {
-  extern __shared__ __align__(16) unsigned char list_smem[];
-  uint4* stage = reinterpret_cast<uint4*>(list_smem);   // [2][kListStage * 2]
+  __shared__ __align__(16) uint4 stage[2 * kListStage];
+  __shared__ __align__(16) float dist[kListThreads / 32][kListQ * kListRow];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kRow = kListChunk + 1;                 // padded: no conflicts
-  float* dist = reinterpret_cast<float*>(stage + 4 * kListStage) +
-                warp * 32 * kRow;
-  unsigned long long* lst = reinterpret_cast<unsigned long long*>(
-      reinterpret_cast<float*>(stage + 4 * kListStage) +
-      (kListThreads / 32) * 32 * kRow) + threadIdx.x;
   const int g = lane / 4, t = lane % 4;
-  const int qbase = blockIdx.x * kListThreads + warp * 32;
+  const int q0 = blockIdx.x * kListQueries + warp * kListQ;
 
-  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
-  {
+  // rows g < kListQ: this warp's queries; the rest zero
+  uint32_t a0 = 0u, a2 = 0u;
+  if (g < kListQ) {
     const float c[3] = {center[0], center[1], center[2]};
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      float r0[16], r1[16];
-      query_row(q, nq, qbase + 16 * mt + g, c, r0);
-      query_row(q, nq, qbase + 16 * mt + g + 8, c, r1);
-#pragma unroll
-      for (int tt = 0; tt < 4; ++tt) {
-        if (tt == t) {
-          a[mt][0] = bf16x2(r0[2 * tt], r0[2 * tt + 1]);
-          a[mt][1] = bf16x2(r1[2 * tt], r1[2 * tt + 1]);
-          a[mt][2] = bf16x2(r0[2 * tt + 8], r0[2 * tt + 9]);
-          a[mt][3] = bf16x2(r1[2 * tt + 8], r1[2 * tt + 9]);
-        }
-      }
-    }
+    float r[16];
+    query_row(q, nq, q0 + g, c, r);
+    a0 = bf16x2(r[2 * t], r[2 * t + 1]);
+    a2 = bf16x2(r[2 * t + 8], r[2 * t + 9]);
   }
-  // this lane's k-th key, at first (inf, kKeyMax) as in knn3_mxu_kernel
-  unsigned long long tail = pair_key(__int_as_float(0x7F800000), kKeyMax);
-  for (int j = 0; j < k; ++j) lst[j * kListThreads] = tail;
-
+  const uint32_t a[4] = {a0, 0u, a2, 0u};
+  // at first (inf, kKeyMax) as in knn3_mxu_kernel
+  const float inf = __int_as_float(0x7F800000);
+  const unsigned long long big = pair_key(inf, kKeyMax);
+  WarpSelect<unsigned long long, P, kListTMxu> sel[kListQ];
+  float tv[kListQ];   // the threshold's value: what may pass
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) {
+    sel[h].init(big);
+    tv[h] = inf;
+  }
+  const uint2* frag = reinterpret_cast<const uint2*>(stage);
+  float* mine = dist[warp];
   const int ntiles = ns_pad / 8;
-  const int n_stages = (ns_pad + kListStage - 1) / kListStage;
-  auto load_stage = [&](int st) {
-    const int c0 = st * kListStage;
-    const int n = 2 * min(kListStage, ns_pad - c0);
-    for (int i = threadIdx.x; i < n; i += kListThreads) {
-      cp_async16(&stage[(st & 1) * 2 * kListStage + i], &pack[2 * c0 + i]);
-    }
-  };
-  load_stage(0);
-  cp_async_commit();
-  for (int st = 0; st < n_stages; ++st) {
-    if (st + 1 < n_stages) load_stage(st + 1);
-    cp_async_commit();
-    cp_async_wait1();
+  const int step4 = 4 * step % ntiles;   // 32 packed columns: 4 n8 tiles
+  for (int c0 = 0; c0 < ns_pad; c0 += kListStage) {
+    const int n = min(kListStage, ns_pad - c0);    // a multiple of 128
     __syncthreads();
-    const int p0 = st * (kListStage / 8);
-    const int ntile = min(kListStage, ns_pad - st * kListStage) / 8;
-    const uint2* buf = reinterpret_cast<const uint2*>(
-        stage + (st & 1) * 2 * kListStage);
-    for (int j0 = 0; j0 < ntile; j0 += kListChunk / 8) {
+    for (int i = threadIdx.x; i < 2 * n; i += kListThreads) {
+      stage[i] = pack[2 * c0 + i];
+    }
+    __syncthreads();
+    // this lane's column: packed n8 tile c0 / 8 + 4i + lane / 8 holds
+    // original tile (that) * step mod ntiles
+    int orig = mul_mod(c0 / 8 + lane / 8, step, ntiles);
+#pragma unroll 1
+    for (int r0 = 0; r0 < n; r0 += kListRound) {
 #pragma unroll
-      for (int jj = 0; jj < kListChunk / 8; ++jj) {
-        const uint2 b = buf[32 * (j0 + jj) + lane];
-        float d[2][4];
-        mma_bf16_16816(d[0], a[0], b.x, b.y);
-        mma_bf16_16816(d[1], a[1], b.x, b.y);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float* r0 = dist + (16 * mt + g) * kRow + 8 * jj + 2 * t;
-          float* r1 = r0 + 8 * kRow;
-          r0[0] = d[mt][0];
-          r0[1] = d[mt][1];
-          r1[0] = d[mt][2];
-          r1[1] = d[mt][3];
+      for (int j = 0; j < kListRound / 8; ++j) {
+        const uint2 b = frag[32 * (r0 / 8 + j) + lane];
+        float d[4];
+        mma_bf16_16816(d, a, b.x, b.y);
+        if (g < kListQ) {
+          *reinterpret_cast<float2*>(mine + g * kListRow + 8 * j + 2 * t) =
+              make_float2(d[0], d[1]);
         }
       }
       __syncwarp();
-      const float* row = dist + lane * kRow;
-      for (int jj = 0; jj < kListChunk / 8; ++jj) {
-        const int col0 = 8 * mul_mod(p0 + j0 + jj, step, ntiles);
-        for (int e = 0; e < 8; ++e) {
-          const float v = row[8 * jj + e];
-          const unsigned long long key = pair_key(v, col0 + e);
-          if (key < tail && v == v) {
-            int j = k - 1;
-            for (; j > 0; --j) {
-              const unsigned long long prev = lst[(j - 1) * kListThreads];
-              if (prev < key) break;
-              lst[j * kListThreads] = prev;
-            }
-            lst[j * kListThreads] = key;
-            tail = lst[(k - 1) * kListThreads];
+#pragma unroll 1
+      for (int i = 0; i < kListRound / 32; ++i) {
+        const int col = 8 * orig + (lane & 7);
+        orig += step4;
+        if (orig >= ntiles) orig -= ntiles;
+#pragma unroll
+        for (int h = 0; h < kListQ; ++h) {
+          const float v = mine[h * kListRow + 32 * i + lane];
+          if (v <= tv[h]) {
+            const unsigned long long key = pair_key(v, col);
+            if (key < sel[h].thr) sel[h].push(key);
           }
         }
+        if (merge_full(sel, k, big)) {
+#pragma unroll
+          for (int h = 0; h < kListQ; ++h) tv[h] = pair_value(sel[h].thr);
+        }
       }
       __syncwarp();
     }
-    __syncthreads();
   }
-  const int qi = qbase + lane;
-  if (qi >= nq) return;
-  const bool qm = q_mask[qi] != 0;
-  for (int j = 0; j < k; ++j) {
-    const unsigned long long key = lst[j * kListThreads];
-    const float d = fmaxf(pair_value(key) - 1.0f, 0.0f);
-    out_d[k * qi + j] = d;
-    out_i[k * qi + j] = min(static_cast<int>(key & 0xFFFFFFFFu), ns - 1);
-    out_v[k * qi + j] = (qm && d < kValidMax) ? 1 : 0;
+  merge_full(sel, k, big, true);
+#pragma unroll
+  for (int h = 0; h < kListQ; ++h) {
+    const int qi = q0 + h;
+    if (qi >= nq) break;
+    const bool qm = q_mask[qi] != 0;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int e = 32 * r + lane;
+      if (e < k) {
+        const unsigned long long key = sel[h].w[r];
+        const float d = fmaxf(pair_value(key) - 1.0f, 0.0f);
+        out_d[k * qi + e] = d;
+        out_i[k * qi + e] = min(static_cast<int>(key & 0xFFFFFFFFu), ns - 1);
+        out_v[k * qi + e] = (qm && d < kValidMax) ? 1 : 0;
+      }
+    }
   }
 }
 
@@ -993,17 +1175,24 @@ int list_exact_launch(const float* q, const uint8_t* q_mask, const float* s,
                       const uint8_t* s_mask, int nq, int ns, int ns_pad,
                       int idx_bits, int k, float* out_d, int* out_i,
                       uint8_t* out_v, cudaStream_t st) {
-  // lanes per query: the fewest that still give every SM 2 blocks
-  const int want = 2 * sm_count();
-  int G = 1;
-  while (G < 32 && blocks_for(nq, kListThreads / G) < want) G *= 2;
-  const int smem = list_exact_smem(k);
-  cudaFuncSetAttribute(knn_list_exact_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  knn_list_exact_kernel<<<blocks_for(nq, kListThreads / G), kListThreads,
-                          smem, st>>>(q, q_mask, s, s_mask, nq, ns, ns_pad,
-                                      idx_bits, visit_step(ns_pad), k, G,
-                                      out_d, out_i, out_v);
+  const int blocks = blocks_for(nq, kListQueries);
+  const int step = visit_step(ns_pad);
+  switch (list_regs(k)) {
+    case 1:
+      knn_list_exact_kernel<1><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, k, out_d,
+          out_i, out_v);
+      break;
+    case 2:
+      knn_list_exact_kernel<2><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, k, out_d,
+          out_i, out_v);
+      break;
+    default:
+      knn_list_exact_kernel<4><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, s, s_mask, nq, ns, ns_pad, idx_bits, step, k, out_d,
+          out_i, out_v);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1011,13 +1200,24 @@ int list_mxu_launch(const float* q, const uint8_t* q_mask, const uint4* pack,
                     const float* center, int nq, int ns, int ns_pad, int k,
                     float* out_d, int* out_i, uint8_t* out_v,
                     cudaStream_t st) {
-  const int smem = list_mxu_smem(k);
-  cudaFuncSetAttribute(knn_list_mxu_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  knn_list_mxu_kernel<<<blocks_for(nq, kListThreads), kListThreads, smem,
-                        st>>>(q, q_mask, pack, center, nq, ns, ns_pad,
-                              visit_step(ns_pad / 8), k, out_d, out_i,
-                              out_v);
+  const int blocks = blocks_for(nq, kListQueries);
+  const int step = visit_step(ns_pad / 8);
+  switch (list_regs(k)) {
+    case 1:
+      knn_list_mxu_kernel<1><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, pack, center, nq, ns, ns_pad, step, k, out_d, out_i,
+          out_v);
+      break;
+    case 2:
+      knn_list_mxu_kernel<2><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, pack, center, nq, ns, ns_pad, step, k, out_d, out_i,
+          out_v);
+      break;
+    default:
+      knn_list_mxu_kernel<4><<<blocks, kListThreads, 0, st>>>(
+          q, q_mask, pack, center, nq, ns, ns_pad, step, k, out_d, out_i,
+          out_v);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

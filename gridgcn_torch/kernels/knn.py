@@ -35,9 +35,9 @@ Both kernels take the list length k (default 3, the decoder's) for
 1 ≤ k ≤ MAX_K = 128, the reference's bound (its kernels write or fold
 their winners into 128-lane rows). For k ≤ REG_MAX_K = 16 `knn.cu` is
 built once for each k that is used (`-DKNN_K=k`: the lists in
-registers); the longer lists share one build (`-DKNN_K=0`: the lists in
-shared memory, k a runtime argument). A longer list raises. The plain
-versions take any k.
+registers); the longer lists share one build (`-DKNN_K=0`, k a runtime
+argument: each list a warp queue over the registers of a warp's 32 lanes,
+WarpSelect). A longer list raises. The plain versions take any k.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ import hashlib
 import math
 import os
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -82,7 +83,7 @@ def _nvcc() -> str:
 
 def _build_k(k: int) -> int:
     """The `-DKNN_K` of the build that serves list length k: k itself up
-    to REG_MAX_K, 0 (the shared-memory list kernels) above."""
+    to REG_MAX_K, 0 (the list kernels) above."""
     return k if k <= REG_MAX_K else 0
 
 
@@ -102,27 +103,44 @@ def build_kernels(ks=(3,)) -> dict[str, str]:
     k ≤ REG_MAX_K, one for every longer k), all started together; raises
     if a build fails. Returns {"<source> k=<k>" (or "k=17..128"): compiler
     log} for those builds: the `-Xptxas -v` register, shared-memory and
-    spill report, kept beside the library."""
+    spill report, kept beside the library, and last the build's own
+    seconds (`nvcc: <s> s`)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = list(dict.fromkeys((src, _build_k(check_k(k)))
                                 for src in SOURCES for k in ks))
     procs = {}
+    t0 = time.perf_counter()
     for src, k in builds:
         out = _lib_path(src, k)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[src, k] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, f"-DKNN_K={k}", "-o", str(tmp),
-             str(_CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for (src, k), (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_build_name(src, k)}:\n"
-                               f"{log}")
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
+        # the compiler's report goes to a file: a pipe that nobody reads
+        # while it runs could fill and stop it
+        with open(tmp.with_suffix(".log"), "w") as f:
+            procs[src, k] = (out, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, f"-DKNN_K={k}", "-o", str(tmp),
+                 str(_CSRC / src)], stdout=f, stderr=subprocess.STDOUT))
+    try:
+        while procs:
+            for key, (out, tmp, proc) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                seconds = time.perf_counter() - t0
+                log = tmp.with_suffix(".log").read_text()
+                tmp.with_suffix(".log").unlink()
+                del procs[key]
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {_build_name(*key)}:\n{log}")
+                out.with_suffix(".log").write_text(
+                    f"{log}nvcc: {seconds:.2f} s\n")
+                os.replace(tmp, out)
+            time.sleep(0.05)
+    finally:
+        for _, _, proc in procs.values():   # after a failure: the others
+            proc.kill()
+            proc.wait()
     return {_build_name(src, k):
             _lib_path(src, k).with_suffix(".log").read_text()
             for src, k in builds}

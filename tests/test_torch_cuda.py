@@ -336,19 +336,30 @@ def test_kernels_at_other_list_lengths(cuda, k, nq):
     assert (dm - dr).abs()[same].max() <= 1e-3
 
 
-@pytest.mark.parametrize("k", [17, 32, 128])
-@pytest.mark.parametrize("nq", [300, 1000, 70000])
-def test_list_kernels_for_long_lists(cuda, k, nq):
-    """17 ≤ k ≤ 128 take the list kernels (one build, `-DKNN_K=0`, lists
-    in shared memory): knn3_exact bit for bit its plain version,
-    knn3_mxu the same validity and, where its neighbours agree with the
-    plain version's, d² within 1e-3; each lane-group width of
-    knn3_exact (few and many queries); k = 129 refused."""
-    args = _inputs(cuda, nq, 3000, 60 + k)
+@pytest.mark.parametrize("k", [17, 32, 100, 128])
+@pytest.mark.parametrize("nq,ns,kw", [
+    (300, 3000, {}), (1000, 3000, {}), (70000, 3000, {}),
+    (300, 2048, GRID), (70000, 2048, GRID), (300, 200, dict(ns_valid=2))])
+def test_list_kernels_for_long_lists(cuda, k, nq, ns, kw):
+    """17 ≤ k ≤ 128 take the list kernels (one build, `-DKNN_K=0`, each
+    list a warp queue in registers): knn3_exact bit for bit its plain
+    version, knn3_mxu the same validity and, where its neighbours agree
+    with the plain version's, d² within 1e-3; on the grid (exact sums,
+    ties everywhere) knn3_mxu bit for bit its plain version too. k = 17
+    and 100 are not multiples of 32; 2 valid supports of 200 leave k - 2
+    masked or padded entries that only the column orders; 300 and 70000
+    queries give a few blocks and many; k = 129 refused."""
+    args = _inputs(cuda, nq, ns, 60 + k + nq, **kw)
+    n0 = (knn.knn3_exact.launches, knn.knn3_mxu.launches)
     _bit_equal(knn.knn3_exact(*args, k=k), knn.knn3_exact_ref(*args, k=k))
     dm, im, vm = knn.knn3_mxu(*args, k=k)
     dr, ir, vr = knn.knn3_mxu_ref(*args, k=k)
+    torch.cuda.synchronize()
+    assert (knn.knn3_exact.launches, knn.knn3_mxu.launches) == \
+        (n0[0] + 1, n0[1] + 1)
     assert dm.shape == (nq, k) and torch.equal(vm, vr)
+    if kw is GRID:
+        _bit_equal((dm, im, vm), (dr, ir, vr))
     same = (im == ir) & vm
     assert same.sum() >= 0.999 * vm.sum()
     assert (dm - dr).abs()[same].max() <= 1e-3
