@@ -67,11 +67,19 @@ Phases, in order; any failure raises and the script exits non-zero:
  16. export: scannet_whole_scene's folded forward at [1, 81920] through
      torch.export, loaded and run in a fresh process under two keys
      against the live Predictor, knn3_mxu 4 launches per call inside;
- 17. data parallelism: a world-1 NCCL mesh train step bit for bit the
+ 17. trace and cost: 10 whole-scene requests (phase 13's Predictor and
+     scene) under utils.profiling.trace, read by utils.traceview (kernels
+     by exclusive time, busy ms, idle share against a CUDA-events
+     latency), and phase 16's artifact priced by utils.hlocost (touched
+     bytes, gather rows, flops, the bytes floor and floor / busy); gates:
+     device events, 40 knn3_mxu launches and its kernel in the report,
+     busy within 2% of the profiler's device self time, 4 knn3_mxu
+     custom-call rows, 0 < floor / busy <= 1;
+ 18. data parallelism: a world-1 NCCL mesh train step bit for bit the
      single-device step; a world-2 gloo mesh with both ranks on cuda:0
      (train step against the single-device step, mesh serving, tier-1
      whole-scene slabs);
- 18. the resident tiers: scannet_whole_scene through tiers 2 and 3 on a
+ 19. the resident tiers: scannet_whole_scene through tiers 2 and 3 on a
      world-2 gloo mesh on cuda:0 against the JAX package's tiers
      (gridgcn_torch/testdata/resident_ref.npz: each layer's per-shard
      CAGQ bit for bit, bf16 logits within 10% of the range, argmax >=
@@ -84,17 +92,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      their plain versions on every decoder call of these tiers; tier 3 at
      world 1 (NCCL): ms per scene beside the single device, ms per train
      step, train_spatial for 2 epochs of 4 scenes;
- 19. the communication audit: each rank's ring-shift bytes in the
-     world-2 tier-3 forward of phase 18 equal to the audit's; its
-     projections at 2, 4 and 8 ranks from the card's anchors (phase 18's
+ 20. the communication audit: each rank's ring-shift bytes in the
+     world-2 tier-3 forward of phase 19 equal to the audit's; its
+     projections at 2, 4 and 8 ranks from the card's anchors (phase 19's
      single-device request and tier-3 ghost tax, the kernel phase's
      knn3_mxu ms on the four decoder calls);
- 20. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
+ 21. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
      sharing cuda:0, with its reference-format lines;
- 21. CAGQ's coord_match and coord_payload gathers on each of the whole
+ 22. CAGQ's coord_match and coord_payload gathers on each of the whole
      scene's four layers: every field bit for bit the packed path's, and
      layer 0 against the CPU;
- 22. one JSON line of kernels, the card line, and the final JSON line.
+ 23. one JSON line of kernels, the card line, and the final JSON line.
 Each phase prints its seconds.
 The kernel phase also holds both kernels against their plain versions on
 the four decoder calls of one augmented training batch, and at the list
@@ -102,7 +110,8 @@ lengths k = 1, 8 and 16 (the register kernels, built once per k used)
 and k = 32 and 128 (the list kernels, one build for 17..128) on the main
 path's four decoder calls; these builds start side by side.
 --profile adds torch.profiler tables of one whole-scene request, of one
-classifier request and of one training step, with their CUDA launch counts.
+classifier request and of one training step, with their CUDA launch counts
+and their busy time read from each one's trace by utils.traceview.
 """
 
 from __future__ import annotations
@@ -118,10 +127,11 @@ import subprocess
 import sys
 import time
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s,
-# bf16 tensor-core and fp32 CUDA-core operations/s
-from gridgcn_torch.utils.hw import (
-    BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S)
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
+# the kNN kernels' operations per pair with the peak each runs at (bf16
+# tensor cores, fp32 CUDA cores)
+from gridgcn_torch.utils.hlocost import KNN_OPS, PEAK_OPS_PER_S
+from gridgcn_torch.utils.hw import HBM_BYTES_PER_S
 # the kNN list lengths other than the decoder's 3 that the kernel phase
 # holds (any_k_phase): the register kernels' shortest, a middle and their
 # longest, then two of the list kernels' (up to the reference's 128),
@@ -335,11 +345,11 @@ def kernel_phase(torch, knn, cases):
                              3, 1)
         library = cuda_ms(torch, lambda: torch.topk(
             torch.cdist(q, s), 3, dim=-1, largest=False), 3, 1)
-        # bytes: inputs read once, outputs written once; operations: 16
-        # bf16 MACs per pair (mxu), 3 sub + 3 mul + 2 add fp32 (exact)
+        # bytes: inputs read once, outputs written once; operations: each
+        # kernel's per pair (hlocost.KNN_OPS)
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = {"knn3_mxu": pairs * 32 / BF16_OPS_PER_S * 1e3,
-                  "knn3_exact": pairs * 8 / FP32_OPS_PER_S * 1e3}
+        ops_ms = {name: pairs * per_pair / PEAK_OPS_PER_S[peak] * 1e3
+                  for name, (per_pair, peak) in KNN_OPS.items()}
         bounds = {k: max(bytes_ms, ops_ms[k]) for k in ops_ms}
         errs = {"knn3_mxu": err_plain,
                 "knn3_exact": (de - dx).abs().max().item()}
@@ -686,25 +696,37 @@ def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches):
           f"knn3_mxu launches per forward {4 * 8}")
 
 
-def profile_phase(torch, pred, xyz, latency_ms):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profiled(torch, name, fn):
+    """Run fn() once under utils.profiling.trace (the trace written to
+    build/chip_smoke_profile/<name>/) and print the profiler's table:
+    (key_averages, host wall ms, device busy ms read from the trace by
+    utils.traceview, device launches)."""
+    import os
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.autograd import DeviceType
+
+    from gridgcn_torch.utils import profiling
+
+    logdir = os.path.join("build", "chip_smoke_profile", name)
+    with profiling.trace(logdir) as prof:
         t0 = time.perf_counter()
-        pred(xyz)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    busy = profiling.busy_ms_per_iter(logdir, 1)
+    assert busy is not None, f"the {name} trace holds no device events"
     # device-side events only (kernels, copies): the aten rows repeat them
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
     kernels = sum(e.count for e in events
                   if e.device_type == DeviceType.CUDA)
+    return events, wall, busy, kernels
+
+
+def profile_phase(torch, pred, xyz, latency_ms, name):
+    events, wall, busy, kernels = profiled(torch, name, lambda: pred(xyz))
     aten = sorted(((e.count, e.key) for e in events
                    if e.key.startswith("aten::")), reverse=True)
-    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     print(f"profile: one request {wall:.3f} ms wall under the profiler, "
           f"device busy {busy:.3f} ms; idle share {1 - busy / latency_ms:.3f}"
           f" of the unprofiled {latency_ms:.3f} ms request; "
@@ -1205,21 +1227,8 @@ def train_phase(torch, np, knn, cfg, ds, heldout, init_model, build_model,
 
 
 def profile_train_step(torch, step, state, batch, rng, latency_ms):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, rng)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
-    kernels = sum(e.count for e in events
-                  if e.device_type == DeviceType.CUDA)
-    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    _, wall, busy, kernels = profiled(torch, "train_step",
+                                      lambda: step(state, batch, rng))
     print(f"profile: one training step {wall:.3f} ms wall under the "
           f"profiler, device busy {busy:.3f} ms; idle share "
           f"{1 - busy / latency_ms:.3f} of the unprofiled {latency_ms:.3f} "
@@ -1668,6 +1677,92 @@ def export_phase(torch, np, knn, presets, Predictor, pred, xyz, jaxrng):
     assert keys_differ > 0
 
 
+def trace_cost_phase(torch, knn, pred, xyz):
+    """The whole-scene request traced and priced with the port's tools:
+    10 pred(xyz) requests (the export phase's live Predictor and
+    scene) under utils.profiling.trace into build/chip_smoke_trace/, read
+    by utils.traceview (per-kernel exclusive time, busy ms) beside a
+    CUDA-events latency of the same requests; the export phase's artifact
+    (the same folded forward at [1, 81920], the same weights) loaded and
+    priced by utils.hlocost (touched bytes, gather rows, flops, the bytes
+    floor). Gates: device events in the trace; knn3_mxu launched 4 times
+    a request under it, and its kernel among the report's rows; the
+    trace's busy time within 2% of the profiler's summed device self time
+    (one stream); exactly 4 gridgcn.knn3_mxu custom-call rows in the
+    graph; 0 < floor / busy <= 1."""
+    import collections
+    import os
+    import shutil
+
+    from torch.autograd import DeviceType
+
+    from gridgcn_torch.utils import hlocost, profiling, traceview
+
+    path = os.path.join("build", "chip_smoke_export", "whole_scene.pt2")
+    assert os.path.exists(path), f"no export artifact at {path}"
+    logdir = os.path.join("build", "chip_smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    iters = 10
+    pred(xyz)
+    n0 = knn.knn3_mxu.launches
+    with profiling.trace(logdir) as prof:
+        for _ in range(iters):
+            pred(xyz)
+        torch.cuda.synchronize()
+    launched = knn.knn3_mxu.launches - n0
+    with open(os.path.join(logdir, "trace.json")) as f:
+        cats = collections.Counter(e.get("cat") for e in
+                                   json.load(f)["traceEvents"]
+                                   if e.get("ph") == "X")
+    print(f"trace: {iters} whole-scene requests, complete events by "
+          f"category {dict(cats)}; counted as device work "
+          f"{list(traceview.DEVICE_CATEGORIES)}")
+    devices = traceview.load_events(logdir)
+    assert devices, "the trace holds no device events"
+    rep = traceview.report(logdir, iters=iters, topn=40)
+    print(rep)
+    busy = profiling.busy_ms_per_iter(logdir, iters)
+    prof_busy = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    latency = profiling.steady_state_time(pred, xyz, warmup=1,
+                                          iters=iters) * 1e3
+    print(f"trace: busy {busy:.4f} ms per request (traceview, "
+          f"{sorted(devices)}), profiler device self time {prof_busy:.4f} "
+          f"ms; CUDA-events latency {latency:.4f} ms per request; idle share "
+          f"{1 - busy / latency:.4f}; knn3_mxu launches under the trace "
+          f"{launched}")
+
+    program = torch.export.load(path)
+    rows = hlocost.attribute(program)
+    cls = hlocost.class_totals(rows)
+    fl = hlocost.floor_ms(rows)
+    mxu = [r for r in rows if r["class"] == "custom-call"
+           and r["opcode"] == "gridgcn.knn3_mxu"]
+    floor_frac = fl["floor_ms"] / busy
+    tiny = [r for r in rows if r["out_bytes"] <= 64]
+    print(f"hlocost whole_scene.pt2: {len(rows)} launching nodes; by class "
+          f"{cls}")
+    print(f"hlocost: touched {fl['touched_bytes']} B (dense "
+          f"{sum(r['bytes'] for r in rows)} B), gather Mrows "
+          f"{cls.get('gather', {}).get('rows', 0) / 1e6:.6f}, flops "
+          f"{fl['flops']} (flops_ms {fl['flops_ms']:.6f}); floor_ms "
+          f"{fl['floor_ms']:.6f} (bw_ms {fl['bw_ms']:.6f}, row_ms "
+          f"{fl['row_ms']}); floor_frac {floor_frac:.6f} of the traced busy "
+          f"ms; achieved {fl['flops'] / busy / 1e9:.4f} TFLOP/s; nodes of "
+          f"<= 64 output bytes (the key's words, derived on the device in "
+          f"the program and in numpy by the live Predictor) {len(tiny)}, "
+          f"{sum(r['touched'] for r in tiny)} B; top rows "
+          f"by touched bytes "
+          f"{[(r['name'], r['opcode'], r['touched']) for r in rows[:5]]}; "
+          f"knn3_mxu rows {[(r['name'], r['flops']) for r in mxu]}")
+    assert launched == 4 * iters, launched
+    assert any("knn3_mxu_kernel" in line
+               for line in rep.splitlines()[1:]), rep
+    assert abs(busy - prof_busy) <= 0.02 * prof_busy, (busy, prof_busy)
+    assert len(mxu) == 4, mxu
+    assert 0 < floor_frac <= 1, floor_frac
+
+
 def _dp_worker(inputs, out_dir):
     """One rank of the world-2 gloo mesh on cuda:0 (dp_phase)."""
     import numpy as np
@@ -1912,8 +2007,8 @@ def list_length_record(torch, knn, k, cases, main, grid=()):
         library = cuda_ms(torch, lambda: torch.topk(
             torch.cdist(q, s), k, dim=-1, largest=False), 2, 1)
         bytes_ms = (nq * 13 + ns * 13 + nq * k * 9) / HBM_BYTES_PER_S * 1e3
-        ops_ms = {"knn3_mxu": pairs * 32 / BF16_OPS_PER_S * 1e3,
-                  "knn3_exact": pairs * 8 / FP32_OPS_PER_S * 1e3}
+        ops_ms = {name: pairs * per_pair / PEAK_OPS_PER_S[peak] * 1e3
+                  for name, (per_pair, peak) in KNN_OPS.items()}
         print(f"{line}; ms exact {ms['knn3_exact']:.4f} (plain "
               f"{plain['knn3_exact']:.4f}), mxu {ms['knn3_mxu']:.4f} (plain "
               f"{plain['knn3_mxu']:.4f}); library {library:.4f}")
@@ -2753,7 +2848,8 @@ def main() -> int:
         launches, latency_ms = serving_phase(torch, np, knn, pred, scenes,
                                              jaxrng)
         if args.profile:
-            profile_phase(torch, pred, scenes[0], latency_ms)
+            profile_phase(torch, pred, scenes[0], latency_ms,
+                          "whole_scene")
 
     with phase("paths correctness"):
         paths_correctness_phase(torch, np, Predictor, presets, init_model,
@@ -2767,7 +2863,8 @@ def main() -> int:
                                                     presets, init_model)
         if args.profile:
             profile_phase(torch, cls_pred,
-                          classifier_clouds(np, 16, 1024, 0), cls_ms)
+                          classifier_clouds(np, 16, 1024, 0), cls_ms,
+                          "classifier")
         cas_seg_serving_phase(torch, np, knn, Predictor, seg_cfg, seg_sd,
                               crops)
 
@@ -2792,6 +2889,8 @@ def main() -> int:
     with phase("export"):
         export_phase(torch, np, knn, presets, Predictor, ref_pred, ref_xyz,
                      jaxrng)
+    with phase("trace and cost"):
+        trace_cost_phase(torch, knn, ref_pred, ref_xyz)
     with phase("data parallel"):
         dp_phase(torch, np, knn, presets, init_model, build_model, steps,
                  jaxrng, train_cfg, train_ds, synthetic_scene_surface,

@@ -22,3 +22,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 # NVLink 4: 900 GB/s to the other cards of the host, 450 GB/s each way
 NVLINK_BYTES_PER_S = 4.5e11
+
+# the card's smallest DRAM access (an L2 sector): a gathered or scattered
+# row moves at least this many bytes
+SECTOR_BYTES = 32

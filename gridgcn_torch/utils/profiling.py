@@ -1,6 +1,6 @@
 """Tracing and timing: `torch.profiler` traces (Chrome trace JSON, viewable
 in Perfetto), a steady-state timer (CUDA events on the card, the host
-clock on the CPU), named regions, and the device-busy time of a profile."""
+clock on the CPU), named regions, and the device-busy time of a trace."""
 
 from __future__ import annotations
 
@@ -57,12 +57,13 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-def busy_ms_per_iter(prof, iters: int) -> float | None:
-    """Device-busy ms per iteration of a finished `torch.profiler` profile:
-    the self time of its device events, summed. None when the profiler
-    recorded no device events (a CPU run)."""
-    from torch.autograd import DeviceType
+def busy_ms_per_iter(logdir: str, iters: int) -> float | None:
+    """Device-busy ms per iteration of the trace that `trace(logdir)`
+    wrote: `utils.traceview`'s exclusive attribution, summed over the
+    devices (each the union of its streams). None when the trace holds no
+    device events (a CPU run); a missing trace raises FileNotFoundError."""
+    from gridgcn_torch.utils.traceview import exclusive_times, load_events
 
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / 1e3 / iters if busy_us else None
+    busy_ps = sum(sum(exclusive_times(events).values())
+                  for events in load_events(logdir).values())
+    return busy_ps / iters / 1e9 if busy_ps else None

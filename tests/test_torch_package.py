@@ -44,8 +44,8 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_training_modules_are_part_of_the_standalone_check():
     """The training slice's modules, and the CLIs' with their data,
-    checkpoint, logging, debug and profiling modules, are among those the
-    check above imports without JAX."""
+    checkpoint, logging, debug and profiling modules and the trace and
+    cost tools, are among those the check above imports without JAX."""
     for m in ("gridgcn_torch.train.steps", "gridgcn_torch.train.metrics",
               "gridgcn_torch.data.augment", "gridgcn_torch.data.pipeline",
               "gridgcn_torch.train.train", "gridgcn_torch.train.evaluate",
@@ -53,7 +53,9 @@ def test_training_modules_are_part_of_the_standalone_check():
               "gridgcn_torch.data.modelnet40", "gridgcn_torch.data.s3dis",
               "gridgcn_torch.data.scannet", "gridgcn_torch.utils.checkpoint",
               "gridgcn_torch.utils.logging", "gridgcn_torch.utils.debug",
-              "gridgcn_torch.utils.profiling"):
+              "gridgcn_torch.utils.profiling",
+              "gridgcn_torch.utils.traceview",
+              "gridgcn_torch.utils.hlocost"):
         assert m in MODULES, m
 
 

@@ -218,11 +218,11 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     dt = profiling.steady_state_time(torch.mm, a, a, warmup=1, iters=3,
                                      device="cpu")
     assert 0 < dt < 10
-    with profiling.trace(str(tmp_path)) as prof:
+    with profiling.trace(str(tmp_path)):
         with profiling.annotate("matmul"):
             torch.mm(a, a)
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "matmul" for e in trace["traceEvents"])
     # no device events on the CPU
-    assert profiling.busy_ms_per_iter(prof, 1) is None
+    assert profiling.busy_ms_per_iter(str(tmp_path), 1) is None
     assert jax.devices()[0].platform == "cpu"
