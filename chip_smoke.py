@@ -74,7 +74,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes, gather rows, flops, the bytes floor and floor / busy); gates:
      device events, 40 knn3_mxu launches and its kernel in the report,
      busy within 2% of the profiler's device self time, 4 knn3_mxu
-     custom-call rows, 0 < floor / busy <= 1;
+     custom-call rows, 0 < floor / busy <= 1, no outer-dim scan kernel;
+     then trace repeat: in one process of its own, 3 traces of 10
+     whole-scene requests and 6 of a two-kernel call, each read only when
+     complete (the device records it lost and the profiler's
+     out-of-range count printed), then the two-kernel call traced in 3
+     fresh processes, each holding its 3 kernels;
  18. data parallelism: a world-1 NCCL mesh train step bit for bit the
      single-device step; a world-2 gloo mesh with both ranks on cuda:0
      (train step against the single-device step, mesh serving, tier-1
@@ -92,17 +97,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      their plain versions on every decoder call of these tiers; tier 3 at
      world 1 (NCCL): ms per scene beside the single device, ms per train
      step, train_spatial for 2 epochs of 4 scenes;
- 20. the communication audit: each rank's ring-shift bytes in the
+ 20. the tier studies, each script in its own process:
+     scripts/study_tier2_compute_torch.py (tier 2's replicated share R/C
+     of the whole-scene forward from traced busy time) and
+     scripts/study_tier3_fixed_overhead_torch.py (tier 3 at world 1
+     against the unsharded forward, per-kernel differences); gates: every
+     trace holds device events, 0 < R/C < 1, C >= E0 + R - 5%, knn3_mxu 4
+     launches per full forward;
+ 21. the communication audit: each rank's ring-shift bytes in the
      world-2 tier-3 forward of phase 19 equal to the audit's; its
      projections at 2, 4 and 8 ranks from the card's anchors (phase 19's
      single-device request and tier-3 ghost tax, the kernel phase's
-     knn3_mxu ms on the four decoder calls);
- 21. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
+     knn3_mxu ms on the four decoder calls, phase 20's R/C; the byte
+     model's share printed beside the measured one);
+ 22. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
      sharing cuda:0, with its reference-format lines;
- 22. CAGQ's coord_match and coord_payload gathers on each of the whole
+ 23. CAGQ's coord_match and coord_payload gathers on each of the whole
      scene's four layers: every field bit for bit the packed path's, and
      layer 0 against the CPU;
- 23. one JSON line of kernels, the card line, and the final JSON line.
+ 24. one JSON line of kernels, the card line, and the final JSON line.
 Each phase prints its seconds.
 The kernel phase also holds both kernels against their plain versions on
 the four decoder calls of one augmented training batch, and at the list
@@ -1685,7 +1698,8 @@ def trace_cost_phase(torch, knn, pred, xyz):
     CUDA-events latency of the same requests; the export phase's artifact
     (the same folded forward at [1, 81920], the same weights) loaded and
     priced by utils.hlocost (touched bytes, gather rows, flops, the bytes
-    floor). Gates: device events in the trace; knn3_mxu launched 4 times
+    floor). Gates: device events in the trace; no outer-dim scan kernel
+    (`scan_outer_dim`) in it; knn3_mxu launched 4 times
     a request under it, and its kernel among the report's rows; the
     trace's busy time within 2% of the profiler's summed device self time
     (one stream); exactly 4 gridgcn.knn3_mxu custom-call rows in the
@@ -1731,6 +1745,11 @@ def trace_cost_phase(torch, knn, pred, xyz):
           f"ms; CUDA-events latency {latency:.4f} ms per request; idle share "
           f"{1 - busy / latency:.4f}; knn3_mxu launches under the trace "
           f"{launched}")
+    # the voxel tables' prefix sums: a last-dim scan, never the outer-dim
+    # scan that gives each column one thread
+    scans = {n: round(ms, 4) for n, ms in
+             traceview.exclusive_ms(logdir, iters).items() if "scan" in n}
+    print(f"trace: scan kernels, exclusive ms per request {scans}")
 
     program = torch.export.load(path)
     rows = hlocost.attribute(program)
@@ -1756,11 +1775,215 @@ def trace_cost_phase(torch, knn, pred, xyz):
           f"{[(r['name'], r['opcode'], r['touched']) for r in rows[:5]]}; "
           f"knn3_mxu rows {[(r['name'], r['flops']) for r in mxu]}")
     assert launched == 4 * iters, launched
+    assert scans and not any("scan_outer_dim" in n for n in scans), scans
     assert any("knn3_mxu_kernel" in line
                for line in rep.splitlines()[1:]), rep
     assert abs(busy - prof_busy) <= 0.02 * prof_busy, (busy, prof_busy)
     assert len(mxu) == 4, mxu
     assert 0 < floor_frac <= 1, floor_frac
+
+
+def _trace_repeat_worker(root: str) -> None:
+    """trace_repeat_phase's one process: 3 traces of 10 whole-scene
+    requests (scannet_whole_scene, seeded weights, the 81920-point scene
+    of seed 7), then 6 of the two-kernel call, each through
+    utils.profiling.trace; one JSON line per trace on stdout (its device
+    events, the kernel launches without their kernel record, and what
+    busy_ms_per_iter read: a busy time, or its refusal), and a `MARK
+    <name>` line on stderr after each, which lines up torch's profiler
+    log with the trace."""
+    import os
+
+    import torch
+
+    from gridgcn_torch.api import Predictor
+    from gridgcn_torch.configs import presets
+    from gridgcn_torch.data.synthetic import synthetic_scene_surface
+    from gridgcn_torch.kernels import knn
+    from gridgcn_torch.models.build import init_model
+    from gridgcn_torch.utils import profiling, traceview
+
+    cfg = presets.scannet_whole_scene()
+    _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, sd, device="cuda")
+    xyz = synthetic_scene_surface(81920, seed=7)
+    call = two_kernel_call(torch, knn)
+    pred(xyz)
+    call()
+    torch.cuda.synchronize()
+    runs = [(f"whole_scene{i}", 10, lambda: pred(xyz)) for i in range(3)]
+    runs += [(f"two_kernel{i}", 1, call) for i in range(6)]
+    for name, iters, fn in runs:
+        d = os.path.join(root, name)
+        with profiling.trace(d):
+            for _ in range(iters):
+                fn()
+        lost, launches = traceview.lost_records(d)
+        events = sum(len(e) for e in traceview.load_events(d).values())
+        try:
+            read = profiling.busy_ms_per_iter(d, iters)
+        except RuntimeError as e:
+            read = f"refused: {e}"
+        print(json.dumps({"trace": name, "iters": iters, "events": events,
+                          "lost": lost, "launches": launches,
+                          "read": read}), flush=True)
+        print(f"MARK {name}", file=sys.stderr, flush=True)
+
+
+def two_kernel_call(torch, knn):
+    """A call of two small kernels: knn3_mxu at 512x128 (its support pack
+    and its kernel) and one torch.add."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.rand((512, 3), generator=g).cuda()
+    s = torch.rand((128, 3), generator=g).cuda()
+    qm = torch.ones(512, dtype=torch.bool, device="cuda")
+    sm = torch.ones(128, dtype=torch.bool, device="cuda")
+    a = torch.ones(1000, device="cuda")
+
+    def call():
+        knn.knn3_mxu(q, qm, s, sm)
+        torch.add(a, a)
+    return call
+
+
+def trace_repeat_phase():
+    """Many traces in one process, as a benchmark would take them
+    (`_trace_repeat_worker`, in a process of its own with torch's
+    profiler logging at KINETO_LOG_LEVEL=0): each trace's device events,
+    the launches whose device record it lost (`traceview.lost_records`)
+    and the profiler's own count of device records it dropped as out of
+    the trace's window (its `Record counts: Out-of-range = N` line) are
+    printed. Then the two-kernel call traced in 3 fresh processes, side
+    by side.
+    Gates: busy_ms_per_iter reads a trace only when it is complete, and
+    refuses it otherwise; in a fresh process each trace holds its 3
+    kernels (the support pack, knn3_mxu, the add), loses none, and reads
+    a busy time."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join("build", "chip_smoke_trace_repeat")
+    shutil.rmtree(root, ignore_errors=True)
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke\n"
+         f"chip_smoke._trace_repeat_worker({root!r})"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "KINETO_LOG_LEVEL": "0"})
+    assert res.returncode == 0, res.stderr[-4000:]
+    out_of_range, pending = {}, None
+    for line in res.stderr.splitlines():
+        m = re.search(r"Out-of-range = (\d+)", line)
+        if m:
+            pending = int(m[1])
+        elif line.startswith("MARK "):
+            out_of_range[line[5:]] = pending
+            pending = None
+    rows = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+    assert len(rows) == 9, res.stdout[-2000:]
+    for r in rows:
+        read = r["read"]
+        print(f"trace repeat: one process, {r['trace']} ({r['iters']} "
+              f"calls): {r['events']} device events, {r['lost']} of "
+              f"{r['launches']} kernel launches without their record, the "
+              f"profiler's out-of-range records "
+              f"{out_of_range.get(r['trace'])}; read "
+              + (f"busy {read:.4f} ms per call" if isinstance(read, float)
+                 else read))
+        complete = r["events"] > 0 and r["lost"] == 0
+        assert isinstance(read, float) == complete, r
+    procs = []
+    for i in range(3):
+        d = os.path.join(root, f"fresh{i}")
+        code = (
+            "import json, torch\n"
+            "import chip_smoke\n"
+            "from gridgcn_torch.kernels import knn\n"
+            "from gridgcn_torch.utils import profiling, traceview\n"
+            "call = chip_smoke.two_kernel_call(torch, knn)\n"
+            "call()\n"
+            "torch.cuda.synchronize()\n"
+            f"with profiling.trace({d!r}):\n"
+            "    call()\n"
+            f"busy = profiling.busy_ms_per_iter({d!r}, 1)\n"
+            "print(json.dumps({'busy': busy, 'lost': traceview.lost_records("
+            f"{d!r}), 'names': [e[2] for evs in traceview.load_events("
+            f"{d!r}).values() for e in evs]}}))\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=here, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    for i, proc in enumerate(procs):
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stderr[-4000:]
+        out = json.loads(stdout.strip().splitlines()[-1])
+        print(f"trace repeat: fresh process {i}: two-kernel call "
+              f"{[n[:40] for n in out['names']]}, kernel launches without "
+              f"their record {out['lost'][0]} of {out['lost'][1]}, busy "
+              f"{out['busy']:.4f} ms")
+        got = out["names"]
+        assert len(got) == 3 and out["lost"][0] == 0, out
+        assert sum("mxu_pack_kernel" in n for n in got) == 1, got
+        assert sum("knn3_mxu_kernel" in n for n in got) == 1, got
+        assert out["busy"] > 0, out
+
+
+def tier_studies_phase(card):
+    """The tier studies on the card, each in its own process at 5 calls a
+    timing: scripts/study_tier2_compute_torch.py (tier 2's replicated
+    share R/C of the whole-scene forward, busy ms from traces) and
+    scripts/study_tier3_fixed_overhead_torch.py (tier 3 at world 1 against
+    the unsharded forward, per-kernel Δ). Gates: each script exits 0
+    (every trace holds device events: busy_ms_per_iter raises otherwise);
+    0 < R/C < 1; C >= E0 + R - 5% of C; knn3_mxu launched 4 times per
+    full forward under the trace; both tier-3 runs busy. Returns the
+    measured R/C, the comm audit's tier-2 anchor."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = {}
+    for script, tag, extra in (
+            ("study_tier2_compute_torch.py", "TIER2_COMPUTE", []),
+            ("study_tier3_fixed_overhead_torch.py", "TIER3_OVERHEAD",
+             ["--topn", "15"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.join(here, "scripts", script),
+             "--iters", "5", "--trace-dir",
+             os.path.join("build", f"chip_smoke_{tag.lower()}"), *extra],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, (script, res.stdout[-2000:],
+                                     res.stderr[-4000:])
+        out = res.stdout.splitlines()
+        for line in out:
+            if line.strip() and not line.startswith(tag + " "):
+                print(f"  {script}: {line}")
+        lines[tag] = json.loads([line for line in out
+                                 if line.startswith(tag + " ")][-1]
+                                .split(" ", 1)[1])
+        print(f"{tag} {json.dumps(lines[tag])}")
+        print(f"tier studies: {script} {time.perf_counter() - t0:.1f} s")
+    t2, t3 = lines["TIER2_COMPUTE"], lines["TIER3_OVERHEAD"]
+    C, R, E0 = (t2[k] for k in ("full_busy_ms", "replicated_busy_ms",
+                                "enc0_busy_ms"))
+    assert all(v is not None and v > 0 for v in (C, R, E0)), t2
+    frac = R / C
+    print(f"tier studies ({card}): tier 2 busy ms per call C {C}, R {R}, "
+          f"E0 {E0}; R/C {frac:.6f} measured, the byte model's "
+          f"{t2['model_replicated_frac']} (kNN ms per stage "
+          f"{t2['model_knn_ms']}); C - E0 - R {C - E0 - R:.4f} ms; wall "
+          f"{t2['wall_ms']}; knn3_mxu launches per full forward "
+          f"{t2['knn3_mxu_launches_per_full']}")
+    print(f"tier studies ({card}): tier 3 at world 1, caps {t3['caps']}: "
+          f"busy {t3['tier3_busy_ms']} ms against {t3['plain_busy_ms']} "
+          f"unsharded (diff {t3['diff_ms']}), wall {t3['tier3_wall_ms']} "
+          f"against {t3['plain_wall_ms']}; ghost overflow "
+          f"{t3['ghost_overflow']}")
+    assert 0 < frac < 1, frac
+    assert C - E0 - R >= -0.05 * C, (C, E0, R)
+    assert t2["knn3_mxu_launches_per_full"] == 4, t2
+    assert t3["plain_busy_ms"] > 0 and t3["tier3_busy_ms"] > 0, t3
+    return frac
 
 
 def _dp_worker(inputs, out_dir):
@@ -2721,13 +2944,19 @@ def comm_phase(cfg, counted, anchors):
     assert sent == got == [want, want], (sent, got, want)
     a = anchors["scannet_whole_scene"]
     for D in (2, 4, 8):
-        print_comm_report(cfg, D, compute_ms_per_step=a["compute_ms"] / D,
-                          ghost_tax=a["ghost_tax"], knn_ms=a["knn_ms"],
-                          label=f"scannet_whole_scene:default (anchors: "
-                                f"single-device {a['compute_ms']:.3f} ms, "
-                                f"ghost tax {a['ghost_tax']:.3f}, decoder "
-                                f"kNN ms {[round(t, 4) for t in a['knn_ms']]}"
-                                f", measured on this card)")
+        rep = print_comm_report(
+            cfg, D, compute_ms_per_step=a["compute_ms"] / D,
+            ghost_tax=a["ghost_tax"], knn_ms=a["knn_ms"],
+            tier2_frac=a["tier2_frac"],
+            label=f"scannet_whole_scene:default (anchors: single-device "
+                  f"{a['compute_ms']:.3f} ms, ghost tax "
+                  f"{a['ghost_tax']:.3f}, decoder kNN ms "
+                  f"{[round(t, 4) for t in a['knn_ms']]}, tier-2 R/C "
+                  f"{a['tier2_frac']:.6f}, measured on this card)")
+        t2 = rep["tier2"]
+        print(f"comm tier 2 at {D} ranks: replicated share measured "
+              f"{t2['replicated_frac_measured']:.6f} (used) against the "
+              f"byte model's {t2['replicated_frac_model']:.6f}")
 
 
 def main() -> int:
@@ -2891,6 +3120,8 @@ def main() -> int:
                      jaxrng)
     with phase("trace and cost"):
         trace_cost_phase(torch, knn, ref_pred, ref_xyz)
+    with phase("trace repeat"):
+        trace_repeat_phase()
     with phase("data parallel"):
         dp_phase(torch, np, knn, presets, init_model, build_model, steps,
                  jaxrng, train_cfg, train_ds, synthetic_scene_surface,
@@ -2898,13 +3129,17 @@ def main() -> int:
     with phase("resident tiers"):
         tiers = resident_phase(torch, np, knn, presets, jaxrng,
                                synthetic_scene_surface, Predictor, card)
+    with phase("tier studies"):
+        tier2_frac = tier_studies_phase(card)
     # the card's own anchors for the audit's projections: single-device
-    # predict_scene, tier 3 at world 1 against it (the ghost tax), and the
-    # decoder's knn3_mxu calls (the kernel phase's main cases)
+    # predict_scene, tier 3 at world 1 against it (the ghost tax), the
+    # decoder's knn3_mxu calls (the kernel phase's main cases, for the
+    # byte model) and tier 2's measured replicated share
     anchors = {"scannet_whole_scene": {
         "compute_ms": tiers["single_ms"],
         "ghost_tax": tiers["tier3_world1_ms"] / tiers["single_ms"] - 1.0,
-        "knn_ms": totals["knn3_mxu"]["stage_ms"]}}
+        "knn_ms": totals["knn3_mxu"]["stage_ms"],
+        "tier2_frac": tier2_frac}}
     with phase("comm audit"):
         comm_phase(cfg, tiers["collectives"], anchors)
     with phase("dry run"):

@@ -40,8 +40,8 @@ class GridLayerSpec:
     # node selection over the packed keys through an approximate top-k in
     # the JAX package; the port selects the exact top-k of the same keys
     approx_topk: bool = False
-    # combined [key|x|y|z] selection-table gathers of the JAX package
-    # (value-identical to the packed path; not ported yet)
+    # combined [key|x|y|z] selection-table gathers (ops/gather.py
+    # `_gather_sel`): the same values as the packed path
     coord_match: bool = False
     coord_payload: bool = False
 

@@ -219,15 +219,16 @@ def _run(n: int, devices: list, anchors: Optional[dict]) -> dict:
                 f"\"ok\": true}}")
 
     # 7. the communication audit: bytes, and with the caller's measured
-    # anchors (single-device ms, ghost tax, the decoder's kNN ms) the
-    # default caps' projection
+    # anchors (single-device ms, ghost tax, the decoder's kNN ms, tier 2's
+    # measured replicated share) the default caps' projection
     for name in ("scannet_seg", "scannet_whole_scene"):
         flagship = presets.get(name)
         if any(layer.n_centers % n for layer in flagship.model.layers):
             continue
         a = (anchors or {}).get(name, {})
         kw = dict(compute_ms_per_step=(a["compute_ms"] / n if a else None),
-                  ghost_tax=a.get("ghost_tax"), knn_ms=a.get("knn_ms"))
+                  ghost_tax=a.get("ghost_tax"), knn_ms=a.get("knn_ms"),
+                  tier2_frac=a.get("tier2_frac"))
         cal_xyz = np.asarray(synthetic_scene_surface(
             flagship.data.num_points * flagship.data.batch_size, seed=7),
             np.float32)
@@ -254,7 +255,8 @@ def dryrun_multichip(n_devices: int, device="cuda",
     docstring). `anchors`: {preset: {"compute_ms": its single-device
     request in ms, "ghost_tax": tier 3's measured compute inflation at the
     default caps, "knn_ms": the decoder's kNN ms per stage, coarsest
-    first}} from measurements on the card, for part 7's projection at the
+    first, and optionally "tier2_frac": tier 2's replicated share R/C}}
+    from measurements on the card, for part 7's projection at the
     default caps; the other reports, and all without anchors, carry bytes
     only. Returns rank 0's record: {"lines": the printed lines, "dp_loss",
     "spatial_loss"}."""

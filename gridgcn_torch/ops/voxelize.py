@@ -261,11 +261,22 @@ def build_voxel_table(xyz: torch.Tensor, mask: torch.Tensor, resolution: int,
                                                            :nv, 0]
 
     # barycenter inputs: prefix sums of voxel-center residuals in sorted
-    # order (residuals are ≤ vsize/2, so the f32 sum does not cancel)
+    # order (residuals are ≤ vsize/2, so the sum does not cancel). Each
+    # cloud's [3, N] is scanned over its last dim on its own, accumulating
+    # in float64 and rounded once, as torch's CPU cumsum does: the card
+    # then gives the CPU's sums but where a float64 rounding crosses a
+    # float32 one. Over dim 1 of [B, N, 3] CUDA's cumsum gives each of the
+    # B·3 columns one thread that walks all N rows, and its last-dim scan
+    # sizes its blocks by the number of rows, so one call over the batch
+    # would sum a cloud in an order that depends on its batchmates
     sx, sy, sz = vid_to_coords(torch.clamp_max(sorted_vid, V - 1), resolution)
     vcenter = (torch.stack([sx, sy, sz], -1).to(xyz.dtype) + 0.5) \
         * vsize[:, None] + origin[:, None]
-    coord_csum = torch.cumsum(coords - vcenter, dim=1)
+    residual = (coords - vcenter).transpose(1, 2).contiguous()
+    scans = [torch.cumsum(r, dim=-1, dtype=torch.float64)
+             for r in residual.split(1)]
+    coord_csum = (scans[0] if B == 1 else torch.cat(scans)).to(
+        residual.dtype).transpose(1, 2)
 
     coord_table = None
     if with_coords:

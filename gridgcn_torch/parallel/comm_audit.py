@@ -28,9 +28,11 @@ times over NVLink:
 the collectives are handed in a world-2 run, and against the JAX package's
 arithmetic, whose differences ROADMAP §3 lists. No measurement is built
 in: the projection takes the per-shard compute time, the ghost-compute
-tax and the decoder's kNN times (tier 2's replicated share) as
-arguments, and its transfer times are projections from the published
-NVLink rate (`utils/hw.py`), not measurements.
+tax and tier 2's replicated share as arguments — the share measured on
+the card (R/C of `scripts/study_tier2_compute_torch.py`), or else a byte
+model priced with the decoder's measured kNN times — and its transfer
+times are projections from the published NVLink rate (`utils/hw.py`),
+not measurements.
 """
 
 from __future__ import annotations
@@ -121,10 +123,21 @@ def _tier2_stage_ms(cfg: Config, knn_ms) -> tuple:
     return dense, repl
 
 
-def tier2_replicated_fraction(cfg: Config, knn_ms) -> float:
+def tier2_replicated_fraction(cfg: Config, knn_ms=None,
+                              measured: Optional[float] = None
+                              ) -> Optional[float]:
     """The share of the single-device forward that tier 2 runs on every
-    rank (the replicated coarse pyramid), from `_tier2_stage_ms` with the
-    decoder's measured kNN times."""
+    rank (the replicated coarse pyramid): `measured`, the card's R/C
+    (`scripts/study_tier2_compute_torch.py`), when given; else the byte
+    model of `_tier2_stage_ms` with the decoder's measured kNN times
+    (None without them)."""
+    if measured is not None:
+        if not 0 < measured < 1:
+            raise ValueError(f"a replicated share is in (0, 1), got "
+                             f"{measured}")
+        return measured
+    if knn_ms is None:
+        return None
     dense, repl = _tier2_stage_ms(cfg, knn_ms)
     return repl / max(dense + repl, 1e-12)
 
@@ -132,14 +145,17 @@ def tier2_replicated_fraction(cfg: Config, knn_ms) -> float:
 def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
                 compute_ms_per_step: Optional[float] = None,
                 ghost_tax: Optional[float] = None,
-                knn_ms=None) -> dict:
+                knn_ms=None, tier2_frac: Optional[float] = None) -> dict:
     """Per-step bytes of every parallel program at `n_devices` ranks, and
     (with `compute_ms_per_step`, the single-device time over D, `ghost_tax`,
-    tier 3's per-shard compute inflation, and `knn_ms`, the decoder's kNN
-    ms per stage, coarsest first, all measured by the caller) projected
-    efficiencies. `ghost_cap`: tier 3's rows per face, an int for every
-    level or one per level (0: the level's share). Training is projected
-    from the same compute time and ghost tax."""
+    tier 3's per-shard compute inflation, and tier 2's replicated share:
+    `tier2_frac`, its measured R/C, or `knn_ms`, the decoder's kNN ms per
+    stage, coarsest first, for the byte model; all measured by the caller)
+    projected efficiencies. Tier 2's projection uses the measured share
+    where given, and the report carries both shares side by side.
+    `ghost_cap`: tier 3's rows per face, an int for every level or one per
+    level (0: the level's share). Training is projected from the same
+    compute time and ghost tax."""
     D = n_devices
     dt = _dtype_bytes(cfg.model.dtype)
     layers, ups = cfg.model.layers, cfg.model.up_layers
@@ -181,8 +197,10 @@ def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
         "bytes_per_chip": int(ag_bytes),
         "train_allreduce_payload_bytes": t2_train,
         "time_ms": ag_bytes / NVLINK_BYTES_PER_S * 1e3,
-        "replicated_frac": (None if knn_ms is None else
-                            tier2_replicated_fraction(cfg, knn_ms)),
+        "replicated_frac": tier2_replicated_fraction(cfg, knn_ms,
+                                                     tier2_frac),
+        "replicated_frac_measured": tier2_frac,
+        "replicated_frac_model": tier2_replicated_fraction(cfg, knn_ms),
     }
 
     # ---- tier 3: per-level ring shifts ----
@@ -218,9 +236,10 @@ def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
     }
 
     if compute_ms_per_step is not None:
-        if ghost_tax is None or knn_ms is None:
+        if ghost_tax is None or (knn_ms is None and tier2_frac is None):
             raise ValueError("a projection needs the measured ghost tax "
-                             "and the decoder's measured kNN ms")
+                             "and tier 2's measured share or the decoder's "
+                             "measured kNN ms")
         t3 = report["tier3"]["time_ms"]
         t3_train = (report["tier3"]["train_bytes_per_dir_per_chip"]
                     + _ring(D) * report["tier3"]
@@ -250,11 +269,13 @@ def print_comm_report(cfg: Config, n_devices: int,
                       ghost_cap=0,
                       label: Optional[str] = None,
                       ghost_tax: Optional[float] = None,
-                      knn_ms=None) -> dict:
+                      knn_ms=None,
+                      tier2_frac: Optional[float] = None) -> dict:
     """`comm_report` printed as one `COMM_REPORT {json}` line."""
     rep = comm_report(cfg, n_devices, ghost_cap=ghost_cap,
                       compute_ms_per_step=compute_ms_per_step,
-                      ghost_tax=ghost_tax, knn_ms=knn_ms)
+                      ghost_tax=ghost_tax, knn_ms=knn_ms,
+                      tier2_frac=tier2_frac)
     if label is not None:
         rep = {"ghost_cap_setting": label, **rep}
     print("COMM_REPORT " + json.dumps(rep))

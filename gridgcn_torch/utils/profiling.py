@@ -16,15 +16,25 @@ import torch
 def trace(logdir: str = "gridgcn_trace"):
     """Profile a scope, CPU and (when present) CUDA activity, and write a
     Chrome trace to `logdir/trace.json`: `with trace("logs") as prof:
-    fn()`. Yields the profiler."""
+    fn()`. Yields the profiler. With CUDA the scope ends by synchronizing
+    every card, so the work it queued is done before the profiler stops.
+
+    On the card, torch's profiler (2.11, CUDA 12.8, H100) can drop device
+    records in a process that has already traced a few tens of thousands
+    of device events: it counts them as out of the trace's time window
+    (`Out-of-range` in its log at KINETO_LOG_LEVEL=0), and the trace then
+    lacks some or all of a call's kernels although their launches are
+    recorded. `busy_ms_per_iter` refuses such a trace; a trace that must
+    be complete is taken in a process of its own."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=acts) as prof:
         yield prof
+        for d in range(torch.cuda.device_count() if cuda else 0):
+            torch.cuda.synchronize(d)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
@@ -60,10 +70,24 @@ def annotate(name: str):
 def busy_ms_per_iter(logdir: str, iters: int) -> float | None:
     """Device-busy ms per iteration of the trace that `trace(logdir)`
     wrote: `utils.traceview`'s exclusive attribution, summed over the
-    devices (each the union of its streams). None when the trace holds no
-    device events (a CPU run); a missing trace raises FileNotFoundError."""
-    from gridgcn_torch.utils.traceview import exclusive_times, load_events
+    devices (each the union of its streams). None for a trace without
+    device events where CUDA is absent (a CPU run). Where CUDA is
+    available a trace without device events, or one whose kernel
+    launches lack their kernel records (`traceview.lost_records`), raises
+    RuntimeError: it was taken with the card's activity on, and an idle
+    or short reading would be false. A missing trace raises
+    FileNotFoundError."""
+    from gridgcn_torch.utils.traceview import exclusive_ms, lost_records
 
-    busy_ps = sum(sum(exclusive_times(events).values())
-                  for events in load_events(logdir).values())
-    return busy_ps / iters / 1e9 if busy_ps else None
+    busy = sum(exclusive_ms(logdir, iters).values())
+    if not torch.cuda.is_available():
+        return busy or None
+    if not busy:
+        raise RuntimeError(f"the trace under {logdir} holds no device "
+                           "events (kernel, gpu_memcpy, gpu_memset)")
+    lost, launches = lost_records(logdir)
+    if lost:
+        raise RuntimeError(f"the trace under {logdir} lost the kernel "
+                           f"records of {lost} of its {launches} kernel "
+                           "launches")
+    return busy

@@ -79,13 +79,8 @@ def load_events(logdir: str) -> dict[str, List[Event]]:
     two devices are never merged (an event on one would steal exclusive
     time from one running at the same time on the other). A trace with no
     device events (a CPU run) gives {}."""
-    path = os.path.join(logdir, "trace.json")
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no trace.json under {logdir}")
-    with open(path) as f:
-        trace = json.load(f)
     per_device: dict[str, List[Event]] = collections.defaultdict(list)
-    for ev in trace["traceEvents"]:
+    for ev in _trace_events(logdir):
         if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATEGORIES:
             continue
         start = _ps(ev["ts"])
@@ -96,27 +91,59 @@ def load_events(logdir: str) -> dict[str, List[Event]]:
     return dict(per_device)
 
 
+def _trace_events(logdir: str) -> list:
+    path = os.path.join(logdir, "trace.json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no trace.json under {logdir}")
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def lost_records(logdir: str) -> tuple[int, int]:
+    """(kernel launches without a kernel record, kernel launches) of
+    `logdir`'s trace: the host's launch calls (`cuda_runtime` and
+    `cuda_driver` events such as cudaLaunchKernel, cuLaunchKernelEx),
+    each matched to the device events by its correlation id; a complete
+    trace of synchronized work loses none. Copies and fills are not
+    counted: a fill of no bytes (cuBLAS's, in addmm) has no record."""
+    events = _trace_events(logdir)
+    done = {ev["args"].get("correlation") for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATEGORIES}
+    launches = [ev["args"].get("correlation") for ev in events
+                if ev.get("ph") == "X"
+                and ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in ev["name"] and "Kernel" in ev["name"]]
+    return sum(c not in done for c in launches), len(launches)
+
+
+def exclusive_ms(logdir: str, iters: int = 1) -> dict[str, float]:
+    """Exclusive ms per iteration of each kernel name in `logdir`'s trace,
+    attributed within each device's own timeline, then summed across the
+    devices; the values sum to the busy time. {} for a CPU trace."""
+    excl: dict[str, float] = collections.defaultdict(float)
+    for events in load_events(logdir).values():
+        for n, ps in exclusive_times(events).items():
+            excl[n] += ps / iters / 1e9
+    return dict(excl)
+
+
 def report(logdir: str, iters: int = 1, topn: int = 30) -> str:
     devices = load_events(logdir)
     if not devices:
         return (f"no device events under {logdir} "
                 "(CPU traces carry none; run on the card)")
-    # attribute within each device's own timeline, then sum across devices
-    excl: dict[str, int] = collections.defaultdict(int)
-    for events in devices.values():
-        for n, ps in exclusive_times(events).items():
-            excl[n] += ps
-    span = max(ev[1] for e in devices.values() for ev in e) - min(
-        e[0][0] for e in devices.values())
+    excl = exclusive_ms(logdir)
+    span = (max(ev[1] for e in devices.values() for ev in e) - min(
+        e[0][0] for e in devices.values())) / 1e9
     busy = sum(excl.values())
     lines = [
-        f"span {span / 1e9:.2f} ms, busy {busy / 1e9:.2f} ms, "
-        f"idle {(span - busy) / 1e9:.2f} ms"
-        + (f"  ({iters} iters => {busy / iters / 1e9:.2f} ms/iter busy)"
+        f"span {span:.2f} ms, busy {busy:.2f} ms, "
+        f"idle {span - busy:.2f} ms"
+        + (f"  ({iters} iters => {busy / iters:.2f} ms/iter busy)"
            if iters > 1 else "")
     ]
-    for n, ps in sorted(excl.items(), key=lambda kv: -kv[1])[:topn]:
-        lines.append(f"{ps / iters / 1e9:9.4f} ms  {n[:110]}")
+    for n, ms in sorted(excl.items(), key=lambda kv: -kv[1])[:topn]:
+        lines.append(f"{ms / iters:9.4f} ms  {n[:110]}")
     return "\n".join(lines)
 
 

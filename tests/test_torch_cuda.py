@@ -401,3 +401,43 @@ def test_coord_gathers_on_cuda_equal_the_packed_path(cuda, flag):
         else:
             assert torch.equal(a.cpu(), c.view(torch.int32)
                                if c.dtype == torch.float32 else c), f.name
+
+
+@pytest.mark.parametrize("B,N", [(1, 81920), (8, 8192)])
+def test_voxel_prefix_sum_on_cuda_against_float64(cuda, B, N):
+    """The voxel table's prefix sum on the card (a last-dim float64 scan
+    of each cloud's [3, N] residuals, rounded to float32) within 1e-5 of
+    the range of the float64 running sum of the same residuals, recorded
+    from the build itself;
+    the last cloud's sums bit for bit those it gets alone, as row B - 1 of
+    the batch's keys (the scan's blocks are sized by its row count)."""
+    from gridgcn_torch.data.synthetic import synthetic_scene_surface
+    from gridgcn_torch.ops.voxelize import build_voxel_table
+    from gridgcn_torch.utils import jaxrng
+
+    xyz = torch.as_tensor(np.stack([synthetic_scene_surface(N, seed=s)
+                                    for s in range(B)]), device=cuda)
+    mask = torch.ones((B, N), dtype=torch.bool, device=cuda)
+    calls, real = [], torch.cumsum
+
+    def cumsum(x, dim, *a, **kw):
+        calls.append(x.clone())
+        return real(x, dim, *a, **kw)
+    torch.cumsum = cumsum
+    try:
+        table = build_voxel_table(xyz, mask, 64, 16, jaxrng.PRNGKey(2),
+                                  with_keys=True, with_slots=False,
+                                  with_coverage=False)
+    finally:
+        torch.cumsum = real
+    res = [x for x in calls if x.shape == (1, 3, N)]
+    assert len(res) == B
+    want = torch.cumsum(torch.cat(res).double(), -1).transpose(1, 2)
+    got = table.coord_csum.double()
+    assert got.shape == (B, N, 3)
+    span = (want.amax() - want.amin()).item()
+    assert (got - want).abs().max().item() <= 1e-5 * span
+    last = build_voxel_table(xyz[-1:], mask[-1:], 64, 16, jaxrng.PRNGKey(2),
+                             with_keys=True, with_slots=False,
+                             with_coverage=False, row0=B - 1)
+    assert torch.equal(last.coord_csum[0], table.coord_csum[-1])
