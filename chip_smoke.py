@@ -103,15 +103,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      scripts/study_tier3_fixed_overhead_torch.py (tier 3 at world 1
      against the unsharded forward, per-kernel differences); gates: every
      trace holds device events, 0 < R/C < 1, C >= E0 + R - 5%, knn3_mxu 4
-     launches per full forward;
+     launches per full forward; then the mesh-1 study
+     (scripts/study_mesh1_overhead_torch.py, eval and --train, both with
+     --ghost-sweep, on scannet_whole_scene; the variants traced in
+     fresh processes, a few a process): the plain forward's and train
+     step's busy ms, tier 3 at one rank at 4 ghost caps and its affine
+     fit in each mode, tier 2 at one rank; gates: every reading from a
+     complete trace, 4 points a fit, no ghost overflow, knn3_mxu 4
+     launches per call, the share/8 overhead within 0.05 of the tier-3
+     fixed-overhead study's +9.2% and the full share's no lower;
  21. the communication audit: each rank's ring-shift bytes in the
      world-2 tier-3 forward of phase 19 equal to the audit's; its
-     projections at 2, 4 and 8 ranks from the card's anchors (phase 19's
-     single-device request and tier-3 ghost tax, the kernel phase's
-     knn3_mxu ms on the four decoder calls, phase 20's R/C; the byte
-     model's share printed beside the measured one);
+     projections at 2, 4 and 8 ranks from the card's anchors, all busy
+     time but the kNN (phase 20's plain forward, plain train step and
+     ghost-tax fits, the tax taken at each rank count; the kernel phase's
+     knn3_mxu ms on the four decoder calls; phase 20's R/C, the byte
+     model's share printed beside it);
  22. the multi-device dry run (gridgcn_torch.dryrun) on 4 gloo ranks
-     sharing cuda:0, with its reference-format lines;
+     sharing cuda:0, with its reference-format lines and phase 21's
+     anchors at every ghost-cap setting;
  23. CAGQ's coord_match and coord_payload gathers on each of the whole
      scene's four layers: every field bit for bit the packed path's, and
      layer 0 against the CPU;
@@ -1933,7 +1943,8 @@ def tier_studies_phase(card):
     timing: scripts/study_tier2_compute_torch.py (tier 2's replicated
     share R/C of the whole-scene forward, busy ms from traces) and
     scripts/study_tier3_fixed_overhead_torch.py (tier 3 at world 1 against
-    the unsharded forward, per-kernel Δ). Gates: each script exits 0
+    the unsharded forward, per-kernel Δ); a study whose trace was refused
+    runs again, twice at most. Gates: each script exits 0
     (every trace holds device events: busy_ms_per_iter raises otherwise);
     0 < R/C < 1; C >= E0 + R - 5% of C; knn3_mxu launched 4 times per
     full forward under the trace; both tier-3 runs busy. Returns the
@@ -1947,11 +1958,22 @@ def tier_studies_phase(card):
             ("study_tier3_fixed_overhead_torch.py", "TIER3_OVERHEAD",
              ["--topn", "15"])):
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, os.path.join(here, "scripts", script),
-             "--iters", "5", "--trace-dir",
-             os.path.join("build", f"chip_smoke_{tag.lower()}"), *extra],
-            cwd=here, capture_output=True, text=True, timeout=600)
+        # a trace that lost device records is refused (busy_ms_per_iter
+        # raises) and the study taken again in a fresh process, twice at
+        # most: each study traces 2-3 times in one process, and a later
+        # trace can lose records there (PERF.md §7)
+        for attempt in range(3):
+            res = subprocess.run(
+                [sys.executable, os.path.join(here, "scripts", script),
+                 "--iters", "5", "--trace-dir",
+                 os.path.join("build", f"chip_smoke_{tag.lower()}"),
+                 *extra],
+                cwd=here, capture_output=True, text=True, timeout=600)
+            refused = re.search(r"RuntimeError: (the trace under .*)",
+                                res.stderr)
+            if res.returncode == 0 or not refused or attempt == 2:
+                break
+            print(f"  {script}: {refused[1]}; taken again")
         assert res.returncode == 0, (script, res.stdout[-2000:],
                                      res.stderr[-4000:])
         out = res.stdout.splitlines()
@@ -1984,6 +2006,78 @@ def tier_studies_phase(card):
     assert t2["knn3_mxu_launches_per_full"] == 4, t2
     assert t3["plain_busy_ms"] > 0 and t3["tier3_busy_ms"] > 0, t3
     return frac
+
+
+# scripts/study_tier3_fixed_overhead_torch.py on the same scene (caps
+# share/8) measured busy +9.2% over the unsharded forward on the H100
+# (8.0145 / 7.3392 ms, 8.0170 / 7.3330); the mesh-1 study's share/8
+# point must land within this many points of it
+TIER3_SHARE8_OVERHEAD = 0.092
+TIER3_SHARE8_BAND = 0.05
+
+
+def mesh1_study_phase(card):
+    """scripts/study_mesh1_overhead_torch.py on the card at 5 calls a
+    timing on scannet_whole_scene: eval --ghost-sweep, then --train
+    --ghost-sweep (the variants traced in fresh processes, a few a
+    process). Gates: both runs exit 0 with busy values (a trace that lost
+    device records is refused and retaken; the retakes printed); 4 sweep
+    points per fit; no ghost overflow; knn3_mxu launched 4 times per
+    forward or train step under every trace; the eval share/8 point (the
+    tier-3 fixed-overhead study's caps) within TIER3_SHARE8_BAND of its
+    +9.2%, and the full-share point, whose ghost rows are 8x as many, no
+    lower than it. Returns the audit's anchors: the plain forward's and
+    the plain train step's busy ms and the eval and train fits."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for mode, extra in (("eval", []), ("train", ["--train"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.join(here, "scripts",
+                                          "study_mesh1_overhead_torch.py"),
+             "--iters", "5", "--ghost-sweep", "--preset",
+             "scannet_whole_scene", "--trace-dir",
+             os.path.join("build", f"chip_smoke_mesh1_{mode}"), *extra],
+            cwd=here, capture_output=True, text=True, timeout=900)
+        assert res.returncode == 0, (mode, res.stdout[-3000:],
+                                     res.stderr[-4000:])
+        out = res.stdout.splitlines()
+        for line in out:
+            if line.strip() and not line.startswith("MESH1_OVERHEAD "):
+                print(f"  mesh-1 {mode}: {line}")
+        runs[mode] = json.loads([line for line in out if line.startswith(
+            "MESH1_OVERHEAD ")][-1].split(" ", 1)[1])
+        print(f"MESH1_OVERHEAD {json.dumps(runs[mode])}")
+        print(f"mesh-1 study: {mode} {time.perf_counter() - t0:.1f} s")
+    for mode, r in runs.items():
+        pts = r["tier3"]
+        assert r["plain"]["busy_ms"] and len(pts) == 4, r
+        assert all(p["busy_ms"] and p["ghost_overflow"] == 0 for p in pts), r
+        assert r["fit"] is not None, r
+        launches = [r["plain"]["knn3_mxu_launches_per_call"]] + [
+            p["knn3_mxu_launches_per_call"] for p in pts] + (
+            [r["tier2"]["knn3_mxu_launches_per_call"]] if r["tier2"] else [])
+        assert launches == [4.0] * len(launches), (mode, launches)
+        print(f"mesh-1 study ({card}), {mode}: plain {r['plain']['busy_ms']}"
+              f" ms busy; tier 3 overhead by ratio "
+              f"{[(round(p['ratio'], 3), p['overhead']) for p in pts]}; fit "
+              f"fixed {r['fit']['fixed']:.4f} coeff {r['fit']['coeff']:.4f} "
+              f"(rms residual {r['fit']['rms_residual']:.4f}); traces "
+              f"retaken {r['retaken']}")
+    ev = runs["eval"]
+    by = {p["div"]: p["overhead"] for p in ev["tier3"]}
+    print(f"mesh-1 study ({card}): tier 2 at one rank {ev['tier2']['busy_ms']}"
+          f" ms busy, overhead {ev['tier2']['overhead']}; tier 3 share/8 "
+          f"overhead {by[8]} against the tier-3 study's "
+          f"{TIER3_SHARE8_OVERHEAD} (band {TIER3_SHARE8_BAND}); full share "
+          f"{by[0]}")
+    assert abs(by[8] - TIER3_SHARE8_OVERHEAD) <= TIER3_SHARE8_BAND, by
+    assert by[0] >= by[8] - 0.02, by
+    fit = {m: (r["fit"]["fixed"], r["fit"]["coeff"]) for m, r in runs.items()}
+    return {"compute_ms": ev["plain"]["busy_ms"],
+            "train_ms": runs["train"]["plain"]["busy_ms"], "tax_fit": fit}
 
 
 def _dp_worker(inputs, out_dir):
@@ -2603,7 +2697,8 @@ def resident_phase(torch, np, knn, presets, jaxrng, scene_fn, Predictor,
     every decoder call of the served tiers and of the live train steps,
     on each rank. (4) Tier 3 at world 1 (NCCL): ms per spatial step
     and train_spatial for an epoch of 4 scenes, the convergence arm's
-    path."""
+    path. Returns {"collectives": each rank's sends and receives of the
+    world-2 tier-3 request} for the comm audit."""
     import os
     import shutil
 
@@ -2822,8 +2917,9 @@ def resident_phase(torch, np, knn, presets, jaxrng, scene_fn, Predictor,
     epochs = [r for r in map(json.loads, open(log)) if r["kind"] == "epoch"]
     print(f"resident world-1 NCCL tier 3 scannet_whole_scene: knn3_mxu "
           f"launches per vote {n1}; ms per scene {ms1:.3f} beside the "
-          f"single-device predict_scene {ms0:.3f} ({ms1 / ms0:.3f}x, the "
-          f"ghost tax at mesh 1; CUDA events, after warm-up; {card}); "
+          f"single-device predict_scene {ms0:.3f} ({ms1 / ms0:.3f}x in "
+          f"latency; CUDA events, after warm-up; {card}; the ghost tax is "
+          f"the mesh-1 study's, in busy time); "
           f"argmax alike the single device "
           f"{float((one.argmax(-1) == single.predict_scene(xyz, rng=key).argmax(-1)).mean()):.5f}")
     print(f"resident world-1 NCCL tier 3 scannet_seg (f32) spatial train "
@@ -2835,8 +2931,7 @@ def resident_phase(torch, np, knn, presets, jaxrng, scene_fn, Predictor,
     assert n1 == 4
     assert all(e["ghost_overflow"] == 0 for e in epochs) and len(epochs) == 2
     assert all(np.isfinite(e["loss"]) for e in epochs)
-    return {"single_ms": ms0, "tier3_world1_ms": ms1,
-            "collectives": [r["resident_ml"]["collectives"]
+    return {"collectives": [r["resident_ml"]["collectives"]
                             for r in (r0, r1)]}
 
 
@@ -2931,7 +3026,8 @@ def comm_phase(cfg, counted, anchors):
     forward handed its collectives (counted in the resident phase's
     workers by `tests/torch_comm_worker.recording`): each rank's ring-shift
     sends equal the audit's per-direction bytes; then the projections at
-    2, 4 and 8 ranks with the card's anchors."""
+    2, 4 and 8 ranks with the card's anchors, the ghost tax taken at each
+    rank count from the fits."""
     from gridgcn_torch.parallel.comm_audit import (
         comm_report, print_comm_report)
 
@@ -2946,17 +3042,23 @@ def comm_phase(cfg, counted, anchors):
     for D in (2, 4, 8):
         rep = print_comm_report(
             cfg, D, compute_ms_per_step=a["compute_ms"] / D,
-            ghost_tax=a["ghost_tax"], knn_ms=a["knn_ms"],
-            tier2_frac=a["tier2_frac"],
-            label=f"scannet_whole_scene:default (anchors: single-device "
-                  f"{a['compute_ms']:.3f} ms, ghost tax "
-                  f"{a['ghost_tax']:.3f}, decoder kNN ms "
-                  f"{[round(t, 4) for t in a['knn_ms']]}, tier-2 R/C "
-                  f"{a['tier2_frac']:.6f}, measured on this card)")
-        t2 = rep["tier2"]
-        print(f"comm tier 2 at {D} ranks: replicated share measured "
-              f"{t2['replicated_frac_measured']:.6f} (used) against the "
-              f"byte model's {t2['replicated_frac_model']:.6f}")
+            train_ms_per_step=a["train_ms"] / D, tax_fit=a["tax_fit"],
+            knn_ms=a["knn_ms"], tier2_frac=a["tier2_frac"],
+            label=f"scannet_whole_scene:default (anchors, measured on this "
+                  f"card: plain forward {a['compute_ms']:.4f} ms busy, plain "
+                  f"train step {a['train_ms']:.4f} ms busy, ghost tax fits "
+                  f"{ {m: [round(x, 4) for x in f] for m, f in a['tax_fit'].items()} }"
+                  f", decoder kNN ms {[round(t, 4) for t in a['knn_ms']]}, "
+                  f"tier-2 R/C {a['tier2_frac']:.6f})")
+        t2, t3, pr = rep["tier2"], rep["tier3"], rep["projection"]
+        print(f"comm at {D} ranks: ghost tax eval "
+              f"{t3['ghost_compute_tax']:.4f}, train "
+              f"{t3['ghost_compute_tax_train']:.4f}; tier 3 efficiency "
+              f"eval {pr['tier3_inference_efficiency']:.4f}, train "
+              f"{pr['tier3_train_efficiency']:.4f}; tier 2 "
+              f"{pr['tier2_inference_efficiency']:.4f}; replicated share "
+              f"measured {t2['replicated_frac_measured']:.6f} (used) "
+              f"against the byte model's {t2['replicated_frac_model']:.6f}")
 
 
 def main() -> int:
@@ -3131,14 +3233,15 @@ def main() -> int:
                                synthetic_scene_surface, Predictor, card)
     with phase("tier studies"):
         tier2_frac = tier_studies_phase(card)
-    # the card's own anchors for the audit's projections: single-device
-    # predict_scene, tier 3 at world 1 against it (the ghost tax), the
-    # decoder's knn3_mxu calls (the kernel phase's main cases, for the
-    # byte model) and tier 2's measured replicated share
+    with phase("mesh-1 study"):
+        mesh1 = mesh1_study_phase(card)
+    # the card's own anchors for the audit's projections, all device-busy
+    # time but the kNN: the plain forward and train step and the ghost
+    # tax's eval and train fits (the mesh-1 study), the decoder's
+    # knn3_mxu calls (the kernel phase's main cases, for the byte model)
+    # and tier 2's measured replicated share (the tier-2 study)
     anchors = {"scannet_whole_scene": {
-        "compute_ms": tiers["single_ms"],
-        "ghost_tax": tiers["tier3_world1_ms"] / tiers["single_ms"] - 1.0,
-        "knn_ms": totals["knn3_mxu"]["stage_ms"],
+        **mesh1, "knn_ms": totals["knn3_mxu"]["stage_ms"],
         "tier2_frac": tier2_frac}}
     with phase("comm audit"):
         comm_phase(cfg, tiers["collectives"], anchors)

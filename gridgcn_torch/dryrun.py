@@ -219,15 +219,19 @@ def _run(n: int, devices: list, anchors: Optional[dict]) -> dict:
                 f"\"ok\": true}}")
 
     # 7. the communication audit: bytes, and with the caller's measured
-    # anchors (single-device ms, ghost tax, the decoder's kNN ms, tier 2's
-    # measured replicated share) the default caps' projection
+    # anchors (the single-device forward's and train step's busy ms, the
+    # ghost tax's eval and train fits, the decoder's kNN ms, tier 2's
+    # measured replicated share) each setting's projection, the tax taken
+    # at n ranks and the setting's caps
     for name in ("scannet_seg", "scannet_whole_scene"):
         flagship = presets.get(name)
         if any(layer.n_centers % n for layer in flagship.model.layers):
             continue
         a = (anchors or {}).get(name, {})
         kw = dict(compute_ms_per_step=(a["compute_ms"] / n if a else None),
-                  ghost_tax=a.get("ghost_tax"), knn_ms=a.get("knn_ms"),
+                  train_ms_per_step=(a["train_ms"] / n
+                                     if a.get("train_ms") else None),
+                  tax_fit=a.get("tax_fit"), knn_ms=a.get("knn_ms"),
                   tier2_frac=a.get("tier2_frac"))
         cal_xyz = np.asarray(synthetic_scene_surface(
             flagship.data.num_points * flagship.data.batch_size, seed=7),
@@ -239,10 +243,7 @@ def _run(n: int, devices: list, anchors: Optional[dict]) -> dict:
             ("quarter_share", tuple(max(8, layer.n_centers // n // 4)
                                     for layer in flagship.model.layers)))
         for label, caps in settings:
-            # the measured ghost tax is the default caps' (a full share a
-            # face, at any n): the other caps' reports carry bytes only
-            rep = comm_report(flagship, n, ghost_cap=caps,
-                              **(kw if label == "default" else {}))
+            rep = comm_report(flagship, n, ghost_cap=caps, **kw)
             say("COMM_REPORT " + json.dumps(
                 {"ghost_cap_setting": f"{name}:{label}", **rep}))
     return out
@@ -253,13 +254,14 @@ def dryrun_multichip(n_devices: int, device="cuda",
                      timeout_s: float = 900.0) -> dict:
     """The dry run over n_devices ranks of `device` (see the module
     docstring). `anchors`: {preset: {"compute_ms": its single-device
-    request in ms, "ghost_tax": tier 3's measured compute inflation at the
-    default caps, "knn_ms": the decoder's kNN ms per stage, coarsest
-    first, and optionally "tier2_frac": tier 2's replicated share R/C}}
-    from measurements on the card, for part 7's projection at the
-    default caps; the other reports, and all without anchors, carry bytes
-    only. Returns rank 0's record: {"lines": the printed lines, "dp_loss",
-    "spatial_loss"}."""
+    forward's device-busy ms, "tax_fit": {"eval": (fixed, coeff),
+    "train": (fixed, coeff)}, the ghost tax's fits from the mesh-1 study,
+    "knn_ms": the decoder's kNN ms per stage, coarsest first, and
+    optionally "train_ms": its single-device train step's busy ms and
+    "tier2_frac": tier 2's replicated share R/C}} from measurements on the
+    card, for part 7's projections at every ghost-cap setting; without
+    anchors the reports carry bytes only. Returns rank 0's record:
+    {"lines": the printed lines, "dp_loss", "spatial_loss"}."""
     devices = rank_devices(n_devices, device)
     return launch(_run, devices, n_devices, devices, anchors,
                   timeout_s=timeout_s)

@@ -27,12 +27,14 @@ times over NVLink:
 `tests/test_torch_comm_audit.py` holds every byte count against the bytes
 the collectives are handed in a world-2 run, and against the JAX package's
 arithmetic, whose differences ROADMAP §3 lists. No measurement is built
-in: the projection takes the per-shard compute time, the ghost-compute
-tax and tier 2's replicated share as arguments — the share measured on
-the card (R/C of `scripts/study_tier2_compute_torch.py`), or else a byte
-model priced with the decoder's measured kNN times — and its transfer
-times are projections from the published NVLink rate (`utils/hw.py`),
-not measurements.
+in: the projection takes as arguments the per-shard forward and train
+step times, the ghost-compute tax's affine fits (`ghost_compute_tax`;
+eval and train, each (fixed, coeff) from the caller's mesh-1 study,
+`scripts/study_mesh1_overhead_torch.py`) and tier 2's replicated share —
+measured on the card (R/C of `scripts/study_tier2_compute_torch.py`), or
+else a byte model priced with the decoder's measured kNN times — and its
+transfer times are projections from the published NVLink rate
+(`utils/hw.py`), not measurements.
 """
 
 from __future__ import annotations
@@ -142,21 +144,44 @@ def tier2_replicated_fraction(cfg: Config, knn_ms=None,
     return repl / max(dense + repl, 1e-12)
 
 
+def ghost_compute_tax(cfg: Config, n_devices: int, ghost_cap, fixed: float,
+                      coeff: float) -> float:
+    """Tier 3's per-shard compute inflation from its ghost rows at
+    `n_devices` ranks and these caps: fixed + coeff · Σ 2·H_i / Σ (M_i / D),
+    affine in the ghost/owned row ratio (H_i the level's rows per face,
+    its share max(8, M_i // D) where the cap is 0). (fixed, coeff) are the
+    caller's least-squares fit of the measured overhead against that
+    ratio at one rank, where the bands are empty and the ghost rows pure
+    padding (`scripts/study_mesh1_overhead_torch.py --ghost-sweep`)."""
+    layers = cfg.model.layers
+    caps = ghost_caps(ghost_cap, len(layers))
+    own = sum(layer.n_centers / n_devices for layer in layers)
+    ghosts = sum(2 * (caps[i] or max(8, layer.n_centers // n_devices))
+                 for i, layer in enumerate(layers))
+    return fixed + coeff * ghosts / max(own, 1.0)
+
+
 def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
                 compute_ms_per_step: Optional[float] = None,
-                ghost_tax: Optional[float] = None,
+                train_ms_per_step: Optional[float] = None,
+                tax_fit: Optional[dict] = None,
                 knn_ms=None, tier2_frac: Optional[float] = None) -> dict:
     """Per-step bytes of every parallel program at `n_devices` ranks, and
-    (with `compute_ms_per_step`, the single-device time over D, `ghost_tax`,
-    tier 3's per-shard compute inflation, and tier 2's replicated share:
-    `tier2_frac`, its measured R/C, or `knn_ms`, the decoder's kNN ms per
-    stage, coarsest first, for the byte model; all measured by the caller)
-    projected efficiencies. Tier 2's projection uses the measured share
-    where given, and the report carries both shares side by side.
-    `ghost_cap`: tier 3's rows per face, an int for every level or one per
-    level (0: the level's share). Training is projected from the same
-    compute time and ghost tax."""
+    projected efficiencies from the caller's measurements on the card:
+    `compute_ms_per_step`, the single-device forward's time over D;
+    `tax_fit`, {"eval": (fixed, coeff), "train": (fixed, coeff)}, the
+    ghost-compute tax's fits (`ghost_compute_tax`, taken at this D and
+    these caps); tier 2's replicated share, `tier2_frac` (its measured
+    R/C) or `knn_ms` (the decoder's kNN ms per stage, coarsest first, for
+    the byte model); and `train_ms_per_step`, the single-device train
+    step's time over D, which prices the training row with the train fit
+    (null without it). A projection without the eval fit, or a training
+    row without the train fit, is refused. Tier 2's projection uses the
+    measured share where given, and the report carries both shares side
+    by side. `ghost_cap`: tier 3's rows per face, an int for every level
+    or one per level (0: the level's share)."""
     D = n_devices
+    tax_fit = tax_fit or {}
     dt = _dtype_bytes(cfg.model.dtype)
     layers, ups = cfg.model.layers, cfg.model.up_layers
     caps = ghost_caps(ghost_cap, len(layers))
@@ -232,14 +257,25 @@ def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
         "train_allreduce_payload_bytes": bn_stats + pbytes + 2 * F32
         + 3 * I64,
         "time_ms": fwd_dir / NVLINK_BYTES_PER_S * 1e3,
-        "ghost_compute_tax": ghost_tax,
+        "ghost_compute_tax": (ghost_compute_tax(cfg, D, ghost_cap,
+                                                *tax_fit["eval"])
+                              if "eval" in tax_fit else None),
+        "ghost_compute_tax_train": (ghost_compute_tax(cfg, D, ghost_cap,
+                                                      *tax_fit["train"])
+                                    if "train" in tax_fit else None),
+        "tax_fit": {k: list(v) for k, v in tax_fit.items()} or None,
     }
 
     if compute_ms_per_step is not None:
-        if ghost_tax is None or (knn_ms is None and tier2_frac is None):
-            raise ValueError("a projection needs the measured ghost tax "
-                             "and tier 2's measured share or the decoder's "
-                             "measured kNN ms")
+        if "eval" not in tax_fit or (knn_ms is None and tier2_frac is None):
+            raise ValueError("a projection needs the ghost tax's measured "
+                             "eval fit and tier 2's measured share or the "
+                             "decoder's measured kNN ms")
+        if train_ms_per_step is not None and "train" not in tax_fit:
+            raise ValueError("a training projection needs the ghost tax's "
+                             "measured train fit")
+        tax = report["tier3"]["ghost_compute_tax"]
+        tax_train = report["tier3"]["ghost_compute_tax_train"]
         t3 = report["tier3"]["time_ms"]
         t3_train = (report["tier3"]["train_bytes_per_dir_per_chip"]
                     + _ring(D) * report["tier3"]
@@ -249,16 +285,18 @@ def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
         t2_shard = ((1 - repl) * compute_ms_per_step
                     + repl * compute_ms_per_step * D
                     + report["tier2"]["time_ms"])
+        tr = train_ms_per_step
         report["projection"] = {
             "basis": f"NVLink {NVLINK_BYTES_PER_S:.3g} B/s per direction "
                      f"(published); a projection, not a measurement",
             "compute_ms_per_shard": compute_ms_per_step,
+            "train_ms_per_shard": tr,
             "tier3_inference_efficiency":
-                compute_ms_per_step / (compute_ms_per_step * (1 + ghost_tax)
+                compute_ms_per_step / (compute_ms_per_step * (1 + tax)
                                        + t3),
             "tier3_train_efficiency":
-                compute_ms_per_step / (compute_ms_per_step * (1 + ghost_tax)
-                                       + t3_train),
+                None if tr is None
+                else tr / (tr * (1 + tax_train) + t3_train),
             "tier2_inference_efficiency": compute_ms_per_step / t2_shard,
         }
     return report
@@ -267,14 +305,16 @@ def comm_report(cfg: Config, n_devices: int, ghost_cap=0,
 def print_comm_report(cfg: Config, n_devices: int,
                       compute_ms_per_step: Optional[float] = None,
                       ghost_cap=0,
+                      train_ms_per_step: Optional[float] = None,
                       label: Optional[str] = None,
-                      ghost_tax: Optional[float] = None,
+                      tax_fit: Optional[dict] = None,
                       knn_ms=None,
                       tier2_frac: Optional[float] = None) -> dict:
     """`comm_report` printed as one `COMM_REPORT {json}` line."""
     rep = comm_report(cfg, n_devices, ghost_cap=ghost_cap,
                       compute_ms_per_step=compute_ms_per_step,
-                      ghost_tax=ghost_tax, knn_ms=knn_ms,
+                      train_ms_per_step=train_ms_per_step,
+                      tax_fit=tax_fit, knn_ms=knn_ms,
                       tier2_frac=tier2_frac)
     if label is not None:
         rep = {"ghost_cap_setting": label, **rep}

@@ -13,11 +13,14 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "gridgcn_trace"):
+def trace(logdir: str = "gridgcn_trace", cpu: bool = True):
     """Profile a scope, CPU and (when present) CUDA activity, and write a
     Chrome trace to `logdir/trace.json`: `with trace("logs") as prof:
     fn()`. Yields the profiler. With CUDA the scope ends by synchronizing
     every card, so the work it queued is done before the profiler stops.
+    `cpu=False` leaves the host's operators out where CUDA is present
+    (the trace keeps the device records and the launch calls that
+    `busy_ms_per_iter` reads, and is a fraction of the size).
 
     On the card, torch's profiler (2.11, CUDA 12.8, H100) can drop device
     records in a process that has already traced a few tens of thousands
@@ -29,7 +32,8 @@ def trace(logdir: str = "gridgcn_trace"):
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    acts = ([ProfilerActivity.CPU] if cpu or not cuda else []) + (
+        [ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=acts) as prof:
         yield prof
@@ -91,3 +95,60 @@ def busy_ms_per_iter(logdir: str, iters: int) -> float | None:
                            f"records of {lost} of its {launches} kernel "
                            "launches")
     return busy
+
+
+def timed_trace(fn: Callable, iters: int, logdir: str, device="cuda",
+                warmup: int = 2, counter: Callable[[], int] | None = None
+                ) -> dict:
+    """fn() timed, then traced: {"wall_ms": ms per call after `warmup`
+    calls (`steady_state_time`: CUDA events on the card, the host clock
+    on the CPU), "busy_ms": device-busy ms per call of one trace of
+    `iters` calls into `logdir` (`trace(cpu=False)`; None on the CPU)},
+    with "per_call": how much `counter()` (a launch count) grew per call
+    under the trace, and "refused": the reason where `busy_ms_per_iter`
+    refused the trace (it lost device records; busy_ms stays None: a
+    refused trace is never read)."""
+    rec = {"wall_ms": steady_state_time(fn, warmup=warmup, iters=iters,
+                                        device=device) * 1e3,
+           "busy_ms": None}
+    n0 = counter() if counter else 0
+    with trace(logdir, cpu=False):
+        for _ in range(iters):
+            fn()
+    if counter:
+        rec["per_call"] = (counter() - n0) / iters
+    try:
+        rec["busy_ms"] = busy_ms_per_iter(logdir, iters)
+    except RuntimeError as e:
+        rec["refused"] = str(e)
+    return rec
+
+
+def in_fresh_process(fn: Callable, *args):
+    """fn(*args) in a spawned process of its own, whose profiler has
+    traced nothing yet (see `trace`); returns its result and re-raises
+    its exception. fn must be importable (a module-level function) and
+    its arguments and result picklable."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return ex.submit(fn, *args).result()
+
+
+def retaking(run: Callable[[], list], retakes: int = 2) -> tuple[list, int]:
+    """run() (a list of `timed_trace` records, each in a fresh process)
+    again while any record was refused, at most `retakes` times; each
+    refusal is printed. Returns (the records, the number of retakes).
+    Raises when the last run still has a refused record."""
+    for attempt in range(retakes + 1):
+        records = run()
+        refused = [r["refused"] for r in records if "refused" in r]
+        if not refused:
+            return records, attempt
+        print(f"trace refused ({refused[0]}): "
+              + ("taken again in a fresh process" if attempt < retakes
+                 else "no retake left"), flush=True)
+    raise RuntimeError(f"traces lost device records {retakes + 1} times: "
+                       f"{refused}")

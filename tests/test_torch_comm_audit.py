@@ -125,18 +125,21 @@ def test_byte_fields_agree_with_jax(name, D, caps):
 
 def test_projection_takes_measured_anchors_only():
     """No measurement is built in: the projection needs the caller's
-    compute time, ghost tax and decoder kNN times, uses the published
-    NVLink rate, and says it is a projection."""
+    compute time, ghost-tax fits and decoder kNN times, uses the published
+    NVLink rate, and says it is a projection. (At the default caps the
+    ghost/owned ratio is 2, so the fit (0.1, 0.2) is a tax of 0.5.)"""
     cfg = tpresets.scannet_whole_scene()
     knn_ms = [0.01, 0.02, 0.05, 0.3]
+    fit = {"eval": (0.1, 0.2), "train": (0.1, 0.2)}
     rep = audit.comm_report(cfg, 4)
     assert "projection" not in rep and rep["tier2"]["replicated_frac"] is None
     with pytest.raises(ValueError, match="ghost tax"):
         audit.comm_report(cfg, 4, compute_ms_per_step=10.0)
     with pytest.raises(ValueError, match="kNN"):
-        audit.comm_report(cfg, 4, compute_ms_per_step=10.0, ghost_tax=0.5)
-    rep = audit.comm_report(cfg, 4, compute_ms_per_step=10.0, ghost_tax=0.5,
-                            knn_ms=knn_ms)
+        audit.comm_report(cfg, 4, compute_ms_per_step=10.0, tax_fit=fit)
+    rep = audit.comm_report(cfg, 4, compute_ms_per_step=10.0, tax_fit=fit,
+                            train_ms_per_step=10.0, knn_ms=knn_ms)
+    assert rep["tier3"]["ghost_compute_tax"] == pytest.approx(0.5)
     p = rep["projection"]
     assert "projection" in p["basis"] and 0 < p["tier3_inference_efficiency"]
     assert p["tier3_inference_efficiency"] < 1 / 1.5

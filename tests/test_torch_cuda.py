@@ -441,3 +441,36 @@ def test_voxel_prefix_sum_on_cuda_against_float64(cuda, B, N):
                              with_keys=True, with_slots=False,
                              with_coverage=False, row0=B - 1)
     assert torch.equal(last.coord_csum[0], table.coord_csum[-1])
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_mesh1_study_traces_are_complete(cuda, tmp_path, mode):
+    """scripts/study_mesh1_overhead_torch.py on the card (scannet_whole_
+    scene, 2 calls a timing, fresh processes): every variant read from a
+    complete trace (busy values; a refused trace is retaken), and
+    knn3_mxu launched 4 times per call under the trace, the tier-3
+    forward and train step at one rank included."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [sys.executable, os.path.join(repo, "scripts",
+                                         "study_mesh1_overhead_torch.py"),
+            "--iters", "2", "--preset", "scannet_whole_scene",
+            "--trace-dir", str(tmp_path)]
+    argv += ["--train"] if mode == "train" else []
+    res = subprocess.run(argv, cwd=repo, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads([line for line in res.stdout.splitlines()
+                      if line.startswith("MESH1_OVERHEAD ")][-1]
+                     .split(" ", 1)[1])
+    rows = [out["plain"]] + out["tier3"] + (
+        [out["tier2"]] if out["tier2"] else [])
+    assert len(rows) == (3 if mode == "eval" else 2)
+    assert all(r["busy_ms"] > 0 for r in rows), rows
+    assert [r["knn3_mxu_launches_per_call"] for r in rows] == \
+        [4.0] * len(rows)
+    assert out["tier3"][0]["ghost_overflow"] == 0

@@ -142,7 +142,7 @@ def test_audit_projects_tier2_from_the_measured_share():
     a share outside (0, 1) is refused."""
     cfg = presets.scannet_whole_scene()
     knn_ms = [0.01, 0.02, 0.05, 0.3]
-    kw = dict(compute_ms_per_step=10.0, ghost_tax=0.5)
+    kw = dict(compute_ms_per_step=10.0, tax_fit={"eval": (0.1, 0.2)})
     model = comm_audit.comm_report(cfg, 4, knn_ms=knn_ms, **kw)
     both = comm_audit.comm_report(cfg, 4, knn_ms=knn_ms, tier2_frac=0.25,
                                   **kw)
