@@ -740,9 +740,12 @@ def profiled(torch, name, fn):
     print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     busy = profiling.busy_ms_per_iter(logdir, 1)
     assert busy is not None, f"the {name} trace holds no device events"
-    # device-side events only (kernels, copies): the aten rows repeat them
+    # device-side events only (kernels, copies): the aten rows repeat them,
+    # and the program's spans' device-side copies (user annotations) are
+    # not launches
     kernels = sum(e.count for e in events
-                  if e.device_type == DeviceType.CUDA)
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
     return events, wall, busy, kernels
 
 
@@ -1746,8 +1749,12 @@ def trace_cost_phase(torch, knn, pred, xyz):
     rep = traceview.report(logdir, iters=iters, topn=40)
     print(rep)
     busy = profiling.busy_ms_per_iter(logdir, iters)
+    # the spans' device-side copies run from their first kernel to their
+    # last, idle gaps included: not work (as traceview.DEVICE_CATEGORIES)
     prof_busy = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA) / 1e3 / iters
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    ) / 1e3 / iters
     latency = profiling.steady_state_time(pred, xyz, warmup=1,
                                           iters=iters) * 1e3
     print(f"trace: busy {busy:.4f} ms per request (traceview, "

@@ -40,6 +40,7 @@ from gridgcn_torch.models.build import build_model
 from gridgcn_torch.models.fold import fold_inference
 from gridgcn_torch.utils import jaxrng
 from gridgcn_torch.utils.precision import full_fp32
+from gridgcn_torch.utils.profiling import annotate
 
 class Predictor:
     def __init__(self, cfg, state_dict, device="cuda", mesh=None):
@@ -66,28 +67,41 @@ class Predictor:
         model.load_state_dict(folded)
         self._model = model.to(self.device).eval()
         self._scene_fwds = {}       # per spatial tier, built at first use
+        self.requests = 0           # calls made, each one span `request#<n>`
 
     @torch.no_grad()
     @full_fp32()
     def __call__(self, xyz, feat=None, mask=None,
                  rng: Optional[np.ndarray] = None) -> np.ndarray:
         """xyz [N,3] or [B,N,3] → logits: [C] / [B,C] for classification,
-        [N,C] / [B,N,C] for per-point tasks."""
+        [N,C] / [B,N,C] for per-point tasks. The call is the span
+        `request#<n>`, n its number among this Predictor's calls, with the
+        spans `copy_in` (inputs to the device) and `fetch` (logits to the
+        host) inside it."""
+        self.requests += 1
+        with annotate(f"request#{self.requests - 1}"):
+            return self._predict(xyz, feat, mask, rng)
+
+    def _predict(self, xyz, feat, mask, rng) -> np.ndarray:
         dev = self.device
-        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
-        squeeze = xyz.dim() == 2
-        if squeeze:
-            xyz = xyz[None]
-            feat = None if feat is None else torch.as_tensor(feat)[None]
-            mask = None if mask is None else torch.as_tensor(mask)[None]
-        if mask is None:
-            mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
-        mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
-        if feat is not None:
-            feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
+        with annotate("copy_in"):
+            xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
+            squeeze = xyz.dim() == 2
+            if squeeze:
+                xyz = xyz[None]
+                feat = None if feat is None else torch.as_tensor(feat)[None]
+                mask = None if mask is None else torch.as_tensor(mask)[None]
+            if mask is None:
+                mask = torch.ones(xyz.shape[:2], dtype=torch.bool,
+                                  device=dev)
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+            if feat is not None:
+                feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
         key = rng if rng is not None else jaxrng.PRNGKey(0)
         if self.mesh is None:
-            out = self._model(xyz, feat, mask, key).float().cpu().numpy()
+            logits = self._model(xyz, feat, mask, key)
+            with annotate("fetch"):
+                out = logits.float().cpu().numpy()
             return out[0] if squeeze else out
         # mesh serving: pad to the shard count, run this rank's rows (the
         # keys those of the padded batch), gather every rank's logits
@@ -99,8 +113,9 @@ class Predictor:
             pad = t.new_zeros((Bp - B, *t.shape[1:]))
             return torch.cat([t, pad])[r0:r1]
         logits = self._model(rows(xyz), None if feat is None else rows(feat),
-                             rows(mask), key, row0=r0).float()
-        out = self.mesh.gather_rows(logits, Bp)[:B].cpu().numpy()
+                             rows(mask), key, row0=r0)
+        with annotate("fetch"):
+            out = self.mesh.gather_rows(logits.float(), Bp)[:B].cpu().numpy()
         return out[0] if squeeze else out
 
     def predict_classes(self, xyz, feat=None, mask=None):

@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from gridgcn_torch.configs.base import GridLayerSpec
 from gridgcn_torch.models.gca import GCA
 from gridgcn_torch.ops.cagq import cagq
+from gridgcn_torch.utils.profiling import annotate
 
 
 def gather_point_features(feat: torch.Tensor, idx: torch.Tensor):
@@ -61,33 +62,38 @@ class GridConv(nn.Module):
         """One downsampling stage: xyz [B, N, 3] f32, feat [B, N, C] or
         None, mask [B, N] → (center_xyz [B, M, 3], center_feat [B, M, Co],
         center_valid [B, M]). The clouds are rows [row0, row0 + B) of the
-        batch whose key this is."""
+        batch whose key this is. Between CAGQ's spans and GCA's (`gca`),
+        the node gathers and offsets are the span `group`."""
         g = cagq(xyz, mask, self.spec, key, bounds=bounds, row0=row0).groups
-        # node positions are always the f32 gather of xyz (g.node_xyz); the
-        # JAX package's bf16 bitcast-pair gather gives the same values
-        node_xyz = g.node_xyz
-        if feat is None:
-            node_feat = None
-        elif self.feat_has_xyz_prefix:
-            nxyz = node_xyz.to(feat.dtype)
-            if feat.shape[-1] > 3:
-                rest = gather_point_features(feat[..., 3:], g.neighbor_idx)
-                node_feat = torch.cat([nxyz, rest], dim=-1)
+        with annotate("group"):
+            # node positions are always the f32 gather of xyz (g.node_xyz);
+            # the JAX package's bf16 bitcast-pair gather gives the same
+            # values
+            node_xyz = g.node_xyz
+            if feat is None:
+                node_feat = None
+            elif self.feat_has_xyz_prefix:
+                nxyz = node_xyz.to(feat.dtype)
+                if feat.shape[-1] > 3:
+                    rest = gather_point_features(feat[..., 3:],
+                                                 g.neighbor_idx)
+                    node_feat = torch.cat([nxyz, rest], dim=-1)
+                else:
+                    node_feat = nxyz
             else:
-                node_feat = nxyz
-        else:
-            node_feat = gather_point_features(feat, g.neighbor_idx)
+                node_feat = gather_point_features(feat, g.neighbor_idx)
 
-        delta_p = node_xyz - g.center_xyz[:, :, None, :]
-        delta_p = torch.where(g.neighbor_mask[..., None], delta_p, 0.0)
-        # 'candidates' context pooling: the masked mean over every stored
-        # context point, in place of GCA's mean over the K nodes
-        ctx_feat = None
-        if g.cand_idx is not None and feat is not None:
-            cand_feat = gather_point_features(feat, g.cand_idx)
-            w = g.cand_valid[..., None].to(cand_feat.dtype)
-            denom = torch.clamp_min(w.sum(dim=-2), 1.0)
-            ctx_feat = (cand_feat * w).sum(dim=-2) / denom
-        center_feat = self.gca(node_feat, delta_p, g.neighbor_mask,
-                               g.node_coverage, ctx_feat=ctx_feat)
+            delta_p = node_xyz - g.center_xyz[:, :, None, :]
+            delta_p = torch.where(g.neighbor_mask[..., None], delta_p, 0.0)
+            # 'candidates' context pooling: the masked mean over every
+            # stored context point, in place of GCA's mean over the K nodes
+            ctx_feat = None
+            if g.cand_idx is not None and feat is not None:
+                cand_feat = gather_point_features(feat, g.cand_idx)
+                w = g.cand_valid[..., None].to(cand_feat.dtype)
+                denom = torch.clamp_min(w.sum(dim=-2), 1.0)
+                ctx_feat = (cand_feat * w).sum(dim=-2) / denom
+        with annotate("gca"):
+            center_feat = self.gca(node_feat, delta_p, g.neighbor_mask,
+                                   g.node_coverage, ctx_feat=ctx_feat)
         return g.center_xyz, center_feat, g.center_valid

@@ -33,6 +33,7 @@ from gridgcn_torch.models.layers import Dense, add_mlp, run_mlp, to_dtype
 from gridgcn_torch.ops.upsample import (
     dense_three_nn, grid_three_nn, three_nn_interpolate)
 from gridgcn_torch.utils.jaxrng import flax_make_rng
+from gridgcn_torch.utils.profiling import annotate
 
 # above this coarse-level size the voxel-table query wins over brute force
 _DENSE_KNN_MAX_SUPPORT = 16384
@@ -78,9 +79,11 @@ class GridGCNSegmentation(nn.Module):
     def encode_layer(self, i: int, xyz, feat, mask, key: np.ndarray,
                      bounds=None, row0: int = 0):
         """GridConv stage i: one CAGQ + GCA downsampling step
-        (rematerialized in training with cfg.remat)."""
-        return run_stage(getattr(self, f"gridconv{i}"), self.cfg.remat,
-                         xyz, feat, mask, key, bounds, row0)
+        (rematerialized in training with cfg.remat); the span
+        `gridconv{i}`."""
+        with annotate(f"gridconv{i}"):
+            return run_stage(getattr(self, f"gridconv{i}"), self.cfg.remat,
+                             xyz, feat, mask, key, bounds, row0)
 
     def uses_grid(self, i: int, n_support: int) -> bool:
         """Whether decoder stage i queries through the voxel grid for a
@@ -94,40 +97,44 @@ class GridGCNSegmentation(nn.Module):
                      row0: int = 0):
         """Feature-propagation stage i: 3-NN interpolation from the coarse
         level (c_*) to the dense level (d_*), skip-concat, shared MLP. `key`
-        is the grid query's voxel-build key (grid stages only)."""
+        is the grid query's voxel-build key (grid stages only). The stage
+        is the span `up{i}`, its query the span `knn3`."""
         up = self.cfg.up_layers[i]
-        if up.method == "pallas":
-            nn_idx, weights, _ = flash_three_nn(d_xyz, d_mask, c_xyz, c_mask,
-                                                k=up.k_interp)
-        elif self.uses_grid(i, c_xyz.shape[1]):
-            if key is None:
-                raise ValueError(f"decoder stage {i} queries the grid and "
-                                 "needs a key")
-            nn_idx, weights, _ = grid_three_nn(
-                d_xyz, d_mask, c_xyz, c_mask, up.resolution, up.nv, key,
-                k=up.k_interp, context=up.context, row0=row0)
-        else:
-            nn_idx, weights, _ = dense_three_nn(
-                d_xyz, d_mask, c_xyz, c_mask, k=up.k_interp,
-                approx=up.approx_knn)
-        idt = self.interp_dtype
-        interp = three_nn_interpolate(
-            c_feat.to(idt), nn_idx, weights.to(idt)).to(self.dtype)
-        skip = d_feat if d_feat is not None else d_xyz
-        x = torch.cat([interp, skip.to(self.dtype)], dim=-1)
-        x = run_mlp(self, f"up{i}", len(up.mlp), x, self.cfg.fold_bn)
-        return torch.where(d_mask[..., None], x, 0.0)
+        with annotate(f"up{i}"):
+            with annotate("knn3"):
+                if up.method == "pallas":
+                    nn_idx, weights, _ = flash_three_nn(
+                        d_xyz, d_mask, c_xyz, c_mask, k=up.k_interp)
+                elif self.uses_grid(i, c_xyz.shape[1]):
+                    if key is None:
+                        raise ValueError(f"decoder stage {i} queries the "
+                                         "grid and needs a key")
+                    nn_idx, weights, _ = grid_three_nn(
+                        d_xyz, d_mask, c_xyz, c_mask, up.resolution, up.nv,
+                        key, k=up.k_interp, context=up.context, row0=row0)
+                else:
+                    nn_idx, weights, _ = dense_three_nn(
+                        d_xyz, d_mask, c_xyz, c_mask, k=up.k_interp,
+                        approx=up.approx_knn)
+            idt = self.interp_dtype
+            interp = three_nn_interpolate(
+                c_feat.to(idt), nn_idx, weights.to(idt)).to(self.dtype)
+            skip = d_feat if d_feat is not None else d_xyz
+            x = torch.cat([interp, skip.to(self.dtype)], dim=-1)
+            x = run_mlp(self, f"up{i}", len(up.mlp), x, self.cfg.fold_bn)
+            return torch.where(d_mask[..., None], x, 0.0)
 
     def head_logits(self, x, dropout_key: np.ndarray | None = None,
                     row0: int = 0):
         """Per-point classification head (logits in float32). In training,
         head layer h drops out under flax's key for the h-th call of the
-        network's one `Dropout` submodule, `_dropout`."""
+        network's one `Dropout` submodule, `_dropout`. The span `head`."""
         n = len(self.cfg.head)
         keys = None if dropout_key is None else [
             flax_make_rng(dropout_key, ("_dropout",), h + 1) for h in range(n)]
-        return self.logits(run_mlp(self, "head", n, x, self.cfg.fold_bn,
-                                   self.cfg.dropout, keys, row0))
+        with annotate("head"):
+            return self.logits(run_mlp(self, "head", n, x, self.cfg.fold_bn,
+                                       self.cfg.dropout, keys, row0))
 
     # ---- full network ----
 

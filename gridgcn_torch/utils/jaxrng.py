@@ -26,6 +26,10 @@ as the JAX package's GSPMD program draws them once for the whole batch.
 
 `gumbel`, `normal` and `uniform` need XLA:CPU's float32 log, erf⁻¹ and
 fused multiply-adds bit for bit: `utils.xla_math` repeats them.
+
+Each draw on a device, and each key derivation from a tensor key, is
+one span `jaxrng` in a profiler's trace (`utils.profiling.annotate`);
+the numpy path runs on the host and has none.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from gridgcn_torch.utils import xla_math
+from gridgcn_torch.utils.profiling import annotate
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -67,11 +72,12 @@ def _key_hash(key, lo):
     numpy uint32 for a numpy key, int64 on the key's device for a tensor
     key. `lo` is a sequence of ints."""
     if isinstance(key, torch.Tensor):
-        k = key.long()
-        x1 = torch.tensor(lo, dtype=torch.int64, device=k.device)
-        b0, b1 = _threefry2x32(k[..., 0:1], k[..., 1:2],
-                               torch.zeros_like(x1), x1)
-        return torch.stack([b0, b1], dim=-1)
+        with annotate("jaxrng"):
+            k = key.long()
+            x1 = torch.tensor(lo, dtype=torch.int64, device=k.device)
+            b0, b1 = _threefry2x32(k[..., 0:1], k[..., 1:2],
+                                   torch.zeros_like(x1), x1)
+            return torch.stack([b0, b1], dim=-1)
     key = np.asarray(key, np.uint32)
     x1 = np.asarray(lo, np.uint32)
     b0, b1 = _threefry2x32(key[..., 0:1], key[..., 1:2],
@@ -141,20 +147,21 @@ def bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     `device`: the hash of the flat row-major index, halves XOR-ed. A [B, 2]
     key array gives [B, *shape], row b drawn under key b. `row0`: the
     draw is rows [row0, row0 + shape[0]) of the same draw at a larger
-    leading extent (one key only)."""
+    leading extent (one key only). One draw is one span `jaxrng`."""
     shape = tuple(shape)
     n = math.prod(shape)
-    k0, k1, batch = _key_words(key, device)
-    off = row0 * (n // shape[0]) if row0 else 0
-    if batch and off:
-        raise ValueError("row0 offsets a single key's draw")
-    if off + n > 2 ** 32:
-        raise NotImplementedError("more than 2^32 draws per key")
-    lo = torch.arange(off, off + n, dtype=torch.int64, device=device)
-    if batch:
-        lo = lo[None]
-    b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape(batch + shape)
+    with annotate("jaxrng"):
+        k0, k1, batch = _key_words(key, device)
+        off = row0 * (n // shape[0]) if row0 else 0
+        if batch and off:
+            raise ValueError("row0 offsets a single key's draw")
+        if off + n > 2 ** 32:
+            raise NotImplementedError("more than 2^32 draws per key")
+        lo = torch.arange(off, off + n, dtype=torch.int64, device=device)
+        if batch:
+            lo = lo[None]
+        b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+        return (b0 ^ b1).reshape(batch + shape)
 
 
 def _floats(key, shape, device, row0: int = 0) -> torch.Tensor:

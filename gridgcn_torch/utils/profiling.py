@@ -1,6 +1,7 @@
 """Tracing and timing: `torch.profiler` traces (Chrome trace JSON, viewable
 in Perfetto), a steady-state timer (CUDA events on the card, the host
-clock on the CPU), named regions, and the device-busy time of a trace."""
+clock on the CPU), the program's spans, and the device-busy time of a
+trace."""
 
 from __future__ import annotations
 
@@ -66,9 +67,18 @@ def steady_state_time(fn: Callable, *args, warmup: int = 2,
     return (time.perf_counter() - t0) / iters
 
 
+SPAN_PREFIX = "gridgcn/"
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region in profiler traces."""
-    return torch.profiler.record_function(name)
+    """The program's span `gridgcn/<name>`: a `record_function` while a
+    profiler records, so that the span lands in the trace beside the
+    kernels it launched, on the same clock; otherwise a shared no-op
+    context, at the cost of one flag check."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 def busy_ms_per_iter(logdir: str, iters: int) -> float | None:
