@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from the checkout's sources (nvcc), print the
      registers and spills of each, and require no spills in the two main
-     kernels;
+     kernels and the draw kernel (csrc/rng.cu);
   3. kernel phase: each flash-kNN kernel (and knn3_mxu's support pack)
      against its plain version on the main path's four decoder calls (the
      served model's encoder output on an 81920-point scene), the four of
@@ -20,7 +20,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the full 81920-point scene (bf16, the preset's dtype);
   5. serving: scannet_whole_scene at full width with seeded random weights,
      3 requests and one predict_scene(votes=2) on 81920-point scenes; the
-     kernel launch counters are read around exactly this run;
+     kernel launch counters are read around exactly this run (the draw
+     kernel 8 launches a forward);
   6. the other presets' paths, each served forward on the card against the
      same forward on the CPU (f32 and bf16 gates, and the share of CAGQ
      center voxels the two devices chose alike): modelnet40_cas (16 clouds
@@ -33,9 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      16 clouds of 1024 points per request, in bf16 (eval_dtype);
   8. CAS segmentation serving: scannet_seg at full width, 8 scenes of 8192
      points per request, CAS with 3 rounds; knn3_mxu launches 4 times per
-     scene (once per decoder stage and cloud);
+     scene (once per decoder stage and cloud), the draw kernel 23 times a
+     forward;
   9. training draws: jaxrng.normal (10^6 draws) and xla_math.erf_inv the
-     same bits on the card as on the CPU;
+     same bits on the card as on the CPU; the draw kernel's device and
+     host µs a launch by epilogue beside its plain version's;
  10. training correctness: one synthetic_scene_seg train step (f32,
      method="pallas", 4 scenes of 4096) on the card against the same step
      on the CPU: loss, gradients, updated parameters and BatchNorm
@@ -454,6 +457,7 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     knn.knn3_mxu.launches_by_k.clear()
     knn.knn3_exact.launches_by_k.clear()
     knn.mxu_pack_support.launches = 0
+    draws0 = dict(jaxrng.launches)
     lat, wall = [], []
     for xyz in scenes:
         start = torch.cuda.Event(enable_timing=True)
@@ -476,8 +480,14 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     assert knn.knn3_mxu.launches == 4 * forwards, launches
     assert launches["knn3_mxu"] == {3: 4 * forwards}, launches
     assert knn.mxu_pack_support.launches == 4 * forwards
+    # one draw kernel a draw: each of the 4 layers' voxel build (bits) and
+    # threshold RVS (uniform)
+    draws = {k: v - draws0[k] for k, v in jaxrng.launches.items()}
+    assert draws == {"bits": 4 * forwards, "uniform": 4 * forwards,
+                     "gumbel": 0}, draws
     peak = torch.cuda.max_memory_allocated()
-    print(f"serving: {forwards} forwards, launches {launches}; per-scene "
+    print(f"serving: {forwards} forwards, launches {launches}, draw kernels "
+          f"{draws}; per-scene "
           f"latency median {statistics.median(lat):.3f} ms (CUDA events; "
           f"{[round(x, 3) for x in lat]}), host wall median "
           f"{statistics.median(wall):.3f} ms; peak memory "
@@ -695,10 +705,13 @@ def classifier_serving_phase(torch, np, Predictor, presets, init_model):
     return preds["modelnet40_full"], medians["modelnet40_full"]
 
 
-def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches):
+def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches,
+                          jaxrng):
     """scannet_seg (CAS, 3 rounds, bf16 with f32 BatchNorm) at full width,
     8 scenes of 8192 points per request, 5 requests after warm-up; every
-    forward launches knn3_mxu once per decoder stage and cloud."""
+    forward launches knn3_mxu once per decoder stage and cloud, and the
+    draw kernel 23 times: 4 voxel builds and 9 permutation rounds (bits),
+    10 Gumbel top-k's (CAS's starts and challengers, layers 2-3's RVS)."""
     assert all(l.cas_iters == 3 for l in cfg.model.layers
                if l.sampler == "cas")
     pred = Predictor(cfg, sd, device="cuda")
@@ -709,14 +722,17 @@ def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches):
 
     pred(batches[0])
     knn.knn3_mxu.launches = 0
+    draws0 = dict(jaxrng.launches)
     check(pred(batches[0]))
     assert knn.knn3_mxu.launches == 4 * 8, knn.knn3_mxu.launches
+    draws = {k: v - draws0[k] for k, v in jaxrng.launches.items()}
+    assert draws == {"bits": 13, "uniform": 0, "gumbel": 10}, draws
     lat, wall, peak = timed_requests(torch, pred, batches, check)
     print(f"scannet_seg (CAS x3, bf16, 8 x 8192 pts): per-batch latency "
           f"median {statistics.median(lat):.3f} ms (CUDA events; "
           f"{[round(x, 3) for x in lat]}), host wall median "
           f"{statistics.median(wall):.3f} ms; peak memory {peak:.1f} MiB; "
-          f"knn3_mxu launches per forward {4 * 8}")
+          f"knn3_mxu launches per forward {4 * 8}, draw kernels {draws}")
 
 
 def profiled(torch, name, fn):
@@ -774,6 +790,50 @@ def rng_phase(torch, jaxrng, xla_math):
     print(f"rng: jaxrng.normal 10^6 draws, {differ[0]} differ between "
           f"card and CPU; erf_inv on 10^6+1 grid points, {differ[1]} differ")
     assert differ == (0, 0), differ
+    draw_kernel_times(torch, jaxrng)
+
+
+def queued_us(torch, fn, reps: int, hold_cycles: int = 2_000_000_000):
+    """Device µs a call of fn over `reps` calls enqueued behind a spin of
+    `hold_cycles` clocks (~1 s, `torch.cuda._sleep`): the calls then run
+    back to back on the device, whatever the host's pace (launch gaps
+    included). The calls' launches must fit CUDA's launch queue (~1000)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert enqueue_s < 0.5, f"the host took {enqueue_s:.3f} s to enqueue"
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def draw_kernel_times(torch, jaxrng, n=81920):
+    """The draw kernel by epilogue at a whole scene's n values under one
+    numpy key: its device µs a draw (the key's copy and the launch) and
+    the host's µs a call (`host_us`), beside the plain version's device
+    µs a draw on the card (the int64 torch path)."""
+    from gridgcn_torch.kernels import rng
+
+    key = jaxrng.PRNGKey(0)
+    for ep in rng.EPILOGUES:
+        lo = jaxrng.xla_math.TINY if ep == "gumbel" else 0.0
+        kernel = lambda: rng.draw(key, (n,), "cuda", 0, ep, lo, 1.0)
+        plain = lambda: rng.draw_ref(int(key[0]), int(key[1]), (n,), 0, ep,
+                                     lo, 1.0, "cuda")
+        assert torch.equal(kernel(), plain())
+        host = statistics.median(host_us(torch, kernel))
+        print(f"rng kernel {ep}: {queued_us(torch, kernel, 200):.3f} us a "
+              f"draw on the device, {host:.1f} us a call on the host "
+              f"({n} values)")
+        print(f"rng plain {ep}: {queued_us(torch, plain, 3):.1f} us of "
+              f"device time a draw")
 
 
 @contextlib.contextmanager
@@ -3134,6 +3194,16 @@ def main() -> int:
         f"main kernels spill or are missing from the report: {spilled}"
     print(f"build: {len(report)} kernels; spilling (bytes stored, loaded): "
           f"{ {k: v for k, v in report.items() if any(v)} }")
+    from gridgcn_torch.kernels import rng
+
+    t0 = time.perf_counter()
+    rng_log = rng.build_kernel()
+    print(f"build: rng.cu in {time.perf_counter() - t0:.2f} s")
+    for line in rng_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("nvcc:"):
+            print(f"  rng.cu: {line.strip()}")
+    assert not any(any(v) for v in spills(rng_log).values()), \
+        f"the draw kernel spills: {spills(rng_log)}"
 
     cfg = presets.scannet_whole_scene()
     _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
@@ -3204,7 +3274,7 @@ def main() -> int:
                           classifier_clouds(np, 16, 1024, 0), cls_ms,
                           "classifier")
         cas_seg_serving_phase(torch, np, knn, Predictor, seg_cfg, seg_sd,
-                              crops)
+                              crops, jaxrng)
 
     with phase("training correctness"):
         rng_phase(torch, jaxrng, xla_math)

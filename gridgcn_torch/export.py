@@ -17,9 +17,10 @@ The program's signature is (xyz [B,N,3] f32, feat [B,N,Cin] f32 if the
 model takes features, mask [B,N] bool, key [2] int64): the CAGQ key is an
 input (the words of a jaxrng key), so every key derivation and draw is
 traced, not frozen. The decoder's kNN kernels are the custom ops of
-`kernels.knn`: the loader imports that module so that they exist, and an
-exported program on the card launches them (counted in
-`knn3_mxu.launches`). The program is pinned to the device it was traced on
+`kernels.knn` and each draw one of `kernels.rng` (`gridgcn::rng_draw_keys`,
+the key a tensor): the loader imports both modules so that they exist, and
+an exported program on the card launches them (counted in
+`knn3_mxu.launches` and `jaxrng.launches`). The program is pinned to the device it was traced on
 (`meta["platforms"]`). TF32 is not part of the program: the loader runs it
 with TF32 off (`utils.precision.full_fp32`), as the live Predictor does.
 """
@@ -98,6 +99,7 @@ class ExportedPredictor:
 
     def __init__(self, path: str):
         import gridgcn_torch.kernels.knn  # noqa: F401  (the custom ops)
+        import gridgcn_torch.kernels.rng  # noqa: F401
 
         with open(path + ".json") as f:
             self.meta = json.load(f)

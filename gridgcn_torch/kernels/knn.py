@@ -97,42 +97,37 @@ def _build_name(source: str, build: int) -> str:
     return f"{source} k={build if build else f'{REG_MAX_K + 1}..{MAX_K}'}"
 
 
-def build_kernels(ks=(3,)) -> dict[str, str]:
-    """Compile every CUDA source of the package for each list length in
-    `ks` that is not built yet, one `nvcc` per source and build (one per
-    k ≤ REG_MAX_K, one for every longer k), all started together; raises
-    if a build fails. Returns {"<source> k=<k>" (or "k=17..128"): compiler
-    log} for those builds: the `-Xptxas -v` register, shared-memory and
-    spill report, kept beside the library, and last the build's own
-    seconds (`nvcc: <s> s`)."""
+def compile_libraries(jobs: dict) -> dict[str, str]:
+    """Compile each {name: (library path, source path, extra nvcc
+    arguments)} whose library is not built yet with `NVCC_FLAGS`, all
+    started together; raises if a build fails. Returns {name: compiler
+    log} for every job: the `-Xptxas -v` register, shared-memory and spill
+    report, kept beside the library, and last the build's own seconds
+    (`nvcc: <s> s`)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    builds = list(dict.fromkeys((src, _build_k(check_k(k)))
-                                for src in SOURCES for k in ks))
     procs = {}
     t0 = time.perf_counter()
-    for src, k in builds:
-        out = _lib_path(src, k)
+    for name, (out, src, extra) in jobs.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         # the compiler's report goes to a file: a pipe that nobody reads
         # while it runs could fill and stop it
         with open(tmp.with_suffix(".log"), "w") as f:
-            procs[src, k] = (out, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, f"-DKNN_K={k}", "-o", str(tmp),
-                 str(_CSRC / src)], stdout=f, stderr=subprocess.STDOUT))
+            procs[name] = (out, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)],
+                stdout=f, stderr=subprocess.STDOUT))
     try:
         while procs:
-            for key, (out, tmp, proc) in list(procs.items()):
+            for name, (out, tmp, proc) in list(procs.items()):
                 if proc.poll() is None:
                     continue
                 seconds = time.perf_counter() - t0
                 log = tmp.with_suffix(".log").read_text()
                 tmp.with_suffix(".log").unlink()
-                del procs[key]
+                del procs[name]
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {_build_name(*key)}:\n{log}")
+                    raise RuntimeError(f"nvcc failed on {name}:\n{log}")
                 out.with_suffix(".log").write_text(
                     f"{log}nvcc: {seconds:.2f} s\n")
                 os.replace(tmp, out)
@@ -141,9 +136,21 @@ def build_kernels(ks=(3,)) -> dict[str, str]:
         for _, _, proc in procs.values():   # after a failure: the others
             proc.kill()
             proc.wait()
-    return {_build_name(src, k):
-            _lib_path(src, k).with_suffix(".log").read_text()
-            for src, k in builds}
+    return {name: out.with_suffix(".log").read_text()
+            for name, (out, _, _) in jobs.items()}
+
+
+def build_kernels(ks=(3,)) -> dict[str, str]:
+    """Compile the kNN sources (`SOURCES`) for each list length in `ks`
+    that is not built yet, one `nvcc` per source and build (one per
+    k ≤ REG_MAX_K, one for every longer k), all started together
+    (`compile_libraries`). Returns {"<source> k=<k>" (or "k=17..128"):
+    compiler log} for those builds."""
+    builds = dict.fromkeys((src, _build_k(check_k(k)))
+                           for src in SOURCES for k in ks)
+    return compile_libraries({
+        _build_name(src, k): (_lib_path(src, k), _CSRC / src,
+                              (f"-DKNN_K={k}",)) for src, k in builds})
 
 
 def _lib(source: str, k: int) -> ctypes.CDLL:

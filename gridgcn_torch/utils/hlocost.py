@@ -17,9 +17,9 @@ they actually touch:
     neither it nor the full output is charged. Rows are counted in the
     updates' own elements, whatever their width.
   * sort (`sort`, `topk`, `argsort`), dot (`mm`, `bmm`, `addmm`, `linear`,
-    `matmul`, `einsum`) and custom-call (the `gridgcn::` kNN ops: inputs
-    + outputs; the kernel's internal traffic is not expanded) are
-    classified so callers can price them at their own measured rates;
+    `matmul`, `einsum`) and custom-call (the `gridgcn::` kNN and draw
+    ops: inputs + outputs; the kernel's internal traffic is not expanded)
+    are classified so callers can price them at their own measured rates;
     every other node is a one-op "fusion".
 
 Nodes that launch no kernel are skipped: placeholders, outputs,
@@ -35,6 +35,7 @@ cores or CUDA cores (dots: 2·m·n·k; the kNN ops: their per-pair counts),
 the port's counterpart of XLA's `cost_analysis()["flops"]`.
 
     import gridgcn_torch.kernels.knn   # the custom ops, before loading
+    import gridgcn_torch.kernels.rng
     rows = attribute(torch.export.load("model.pt2"))
     class_totals(rows), floor_ms(rows)
 """

@@ -13,10 +13,16 @@ key and on the key's device in torch for a tensor key, so that a traced
 program (`torch.export`) takes its key as an input instead of freezing the
 tracing key into a constant; the two paths give the same words. Draws
 (`bits`, `uniform`, `normal`, `bernoulli`, `gumbel`, `permutation`) run on
-the tensor's device in torch int64 arithmetic masked to 32 bits (uint32 ops
-are only partly supported on CUDA). A draw also takes a [B, 2] array of
-keys and makes the B draws in one pass, [B, *shape]: the hash is
-elementwise, so each row equals the draw under its own key.
+the draw's device through `kernels.rng`'s custom op: on the CPU in torch
+int64 arithmetic masked to 32 bits (the op's plain version), on CUDA as
+one kernel a draw (`csrc/rng.cu`: the hash and the `bits`, `uniform` or
+`gumbel` epilogue; `normal` and `bernoulli` finish a `uniform` in torch,
+`permutation` sorts `bits`); the kernel reads its keys on the device, a
+numpy key copied there without blocking. `launches` counts the kernel's
+launches by epilogue ({"bits", "uniform", "gumbel"}: 0 on the CPU). A
+draw also takes a [B, 2] array of keys and makes the B draws in one pass,
+[B, *shape]: the hash is elementwise, so each row equals the draw under
+its own key.
 
 Every draw is a hash of its flat row-major counter (the partitionable
 mode), so the rows [row0, row0 + B) of a draw at a larger batch are the
@@ -25,11 +31,13 @@ make one data-parallel rank's rows of the global batch's draws exactly,
 as the JAX package's GSPMD program draws them once for the whole batch.
 
 `gumbel`, `normal` and `uniform` need XLA:CPU's float32 log, erf⁻¹ and
-fused multiply-adds bit for bit: `utils.xla_math` repeats them.
+fused multiply-adds bit for bit: `utils.xla_math` repeats them in torch,
+and `csrc/rng.cu` repeats the log and the multiply-add in its epilogues.
 
-Each draw on a device, and each key derivation from a tensor key, is
-one span `jaxrng` in a profiler's trace (`utils.profiling.annotate`);
-the numpy path runs on the host and has none.
+Each draw, its float epilogue included, and each key derivation from a
+tensor key, is one span `jaxrng` in a profiler's trace
+(`utils.profiling.annotate`); the numpy key derivations run on the host
+and have none.
 """
 
 from __future__ import annotations
@@ -40,30 +48,12 @@ import math
 import numpy as np
 import torch
 
+from gridgcn_torch.kernels import rng as rng_kernel
 from gridgcn_torch.utils import xla_math
 from gridgcn_torch.utils.profiling import annotate
 
 _M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(k0, k1, x0, x1):
-    """The threefry2x32 hash of counter pairs (x0, x1) under key (k0, k1):
-    20 rounds, key injection every 4. Works on numpy uint32 arrays and on
-    torch int64 tensors holding values below 2³² (every add and left shift
-    is masked back to 32 bits). The key words are ints, or int64 tensors
-    that broadcast against the counters."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
-            x1 = x1 ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ((ks[(i + 2) % 3] + i + 1) & _M32)) & _M32
-    return x0, x1
+launches = rng_kernel.launches      # kernel launches by epilogue
 
 
 def _key_hash(key, lo):
@@ -75,13 +65,13 @@ def _key_hash(key, lo):
         with annotate("jaxrng"):
             k = key.long()
             x1 = torch.tensor(lo, dtype=torch.int64, device=k.device)
-            b0, b1 = _threefry2x32(k[..., 0:1], k[..., 1:2],
-                                   torch.zeros_like(x1), x1)
+            b0, b1 = rng_kernel.threefry2x32(k[..., 0:1], k[..., 1:2],
+                                             torch.zeros_like(x1), x1)
             return torch.stack([b0, b1], dim=-1)
     key = np.asarray(key, np.uint32)
     x1 = np.asarray(lo, np.uint32)
-    b0, b1 = _threefry2x32(key[..., 0:1], key[..., 1:2],
-                           np.zeros_like(x1), x1)
+    b0, b1 = rng_kernel.threefry2x32(key[..., 0:1], key[..., 1:2],
+                                     np.zeros_like(x1), x1)
     return np.stack([b0, b1], axis=-1).astype(np.uint32)
 
 
@@ -126,20 +116,20 @@ def flax_make_rng(key, path: tuple, counter: int):
     return fold_in(key, int.from_bytes(m.digest()[:4], "big"))
 
 
-def _key_words(key, device):
-    """(k0, k1) of one key as ints (a numpy key) or 0-d int64 tensors (a
-    tensor key), or of [B, 2] keys as int64 tensors [B, 1], on `device`;
-    and the batch prefix of the draw shape."""
-    if isinstance(key, torch.Tensor):
-        k = key.long().to(device)
-    else:
-        key = np.asarray(key)
-        if key.ndim == 1:
-            return int(key[0]), int(key[1]), ()
-        k = torch.as_tensor(key.astype(np.int64), device=device)
-    if k.dim() == 1:
-        return k[0], k[1], ()
-    return k[:, 0:1], k[:, 1:2], (k.shape[0],)
+def _draw(key, shape, device, row0: int, epilogue: str, lo: float = 0.0,
+          scale: float = 1.0) -> torch.Tensor:
+    """One draw through `kernels.rng.draw` (the op's CPU implementation is
+    the int64 torch path, a CUDA device launches one kernel), as one span
+    `jaxrng`: `row0` becomes the counters' offset."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    with annotate("jaxrng"):
+        off = row0 * (n // shape[0]) if row0 else 0
+        if off and np.ndim(key) == 2:
+            raise ValueError("row0 offsets a single key's draw")
+        if off + n > 2 ** 32:
+            raise NotImplementedError("more than 2^32 draws per key")
+        return rng_kernel.draw(key, shape, device, off, epilogue, lo, scale)
 
 
 def bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
@@ -148,47 +138,27 @@ def bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     key array gives [B, *shape], row b drawn under key b. `row0`: the
     draw is rows [row0, row0 + shape[0]) of the same draw at a larger
     leading extent (one key only). One draw is one span `jaxrng`."""
-    shape = tuple(shape)
-    n = math.prod(shape)
-    with annotate("jaxrng"):
-        k0, k1, batch = _key_words(key, device)
-        off = row0 * (n // shape[0]) if row0 else 0
-        if batch and off:
-            raise ValueError("row0 offsets a single key's draw")
-        if off + n > 2 ** 32:
-            raise NotImplementedError("more than 2^32 draws per key")
-        lo = torch.arange(off, off + n, dtype=torch.int64, device=device)
-        if batch:
-            lo = lo[None]
-        b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-        return (b0 ^ b1).reshape(batch + shape)
-
-
-def _floats(key, shape, device, row0: int = 0) -> torch.Tensor:
-    """The [0, 1) float32 of JAX's uniform: the top 23 bits as the mantissa
-    of a float in [1, 2), minus 1."""
-    b = bits(key, shape, device, row0)
-    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return _draw(key, shape, device, row0, "bits")
 
 
 def uniform(key, shape, device="cpu", minval: float = 0.0,
             maxval: float = 1.0, row0: int = 0) -> torch.Tensor:
-    """`jax.random.uniform(key, shape, minval=, maxval=)`, float32:
+    """`jax.random.uniform(key, shape, minval=, maxval=)`, float32: the
+    top 23 bits as the mantissa of a float in [1, 2), minus 1; then
     max(minval, floats·(maxval − minval) + minval), the multiply-add fused
-    as XLA:CPU fuses it."""
+    as XLA:CPU fuses it (unless the range is [0, 1))."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    f = _floats(key, shape, device, row0)
-    if lo == 0 and hi == 1:                 # f·1 + 0 = f, and f ≥ 0
-        return f
-    return torch.clamp_min(xla_math.fma32(f, float(hi - lo), float(lo)),
-                           float(lo))
+    return _draw(key, shape, device, row0, "uniform", float(lo),
+                 float(hi - lo))
 
 
 def gumbel(key, shape, device="cpu") -> torch.Tensor:
     """`jax.random.gumbel(key, shape)` in JAX's default "low" mode,
-    float32: −log(−log(u)) with u = uniform(minval=tiny, maxval=1)."""
-    u = uniform(key, shape, device, minval=xla_math.TINY)
-    return -xla_math.log(-xla_math.log(u))
+    float32: −log(−log(u)) with u = uniform(minval=tiny, maxval=1), inside
+    the draw's span (on the card, inside its one kernel)."""
+    lo = np.float32(xla_math.TINY)
+    return _draw(key, shape, device, 0, "gumbel", float(lo),
+                 float(np.float32(1.0) - lo))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

@@ -7,7 +7,10 @@ with the Cephes polynomial (`polynomial_approximations`), log1p with a
 Cephes rational for small |x|, and erf⁻¹ with Giles' polynomials. The port
 repeats those roundings op by op, each in its own torch kernel, so the
 values are the same bits on the CPU and on CUDA, and equal the JAX
-package's. `torch.log1p`, `torch.special.erfinv` and even the CPU's
+package's. The draws' kernel (`csrc/rng.cu`, through `kernels.rng`)
+repeats `fma32` and `log` once more inside its `uniform` and `gumbel`
+epilogues, with explicitly rounded CUDA intrinsics and no contraction;
+`erf_inv` (for `jaxrng.normal`) stays in torch ops. `torch.log1p`, `torch.special.erfinv` and even the CPU's
 float32 `torch.sqrt` (not correctly rounded there) would not be.
 """
 

@@ -78,8 +78,10 @@ def test_kernels_import_calls_no_nvcc():
         "    raise AssertionError(f'process started at import: {a}')\n"
         "subprocess.Popen = subprocess.run = refuse\n"
         "import gridgcn_torch.kernels.knn as knn\n"
+        "import gridgcn_torch.kernels.rng as rng\n"
         "assert knn.knn3_mxu.launches == 0 == knn.knn3_exact.launches\n"
-        "assert not knn._libs\n")
+        "assert not knn._libs and not rng._lib_cache\n"
+        "assert not any(rng.launches.values())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
