@@ -74,14 +74,6 @@ class Reservoir:
         self.seen += 1
 
 
-def _spans(name: str) -> bool:
-    """The modules the benchmark opens spans on: each encoder layer
-    (`gridconv{i}`: CAGQ + GCA) and its GCA."""
-    parts = name.split(".")
-    return (parts[0].startswith("gridconv")
-            and (len(parts) == 1 or parts[1:] == ["gca"]))
-
-
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -121,19 +113,23 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     wl = cell.workload
     port_cfg = port_from_dict(cell.config_file["config"])
     ref_cfg = ref_from_dict(cell.config_file["config"])
-    sd = weights.make_state_dict(ref_cfg.model, seed, device)
-    xyz, labels = traffic.make_pool(wl, seed)
+    net = spec.reference_network(cell.config_file, cell.bench_dir)
+    sd = weights.make_state_dict(ref_cfg.model, seed, device, net)
+    pool = traffic.make_pool(wl, seed, cell.bench_dir)
     key = np.array([0, seed & 0xFFFFFFFF], np.uint32)   # PRNGKey(seed)
     batch = int(wl["batch"])
     chk = wl["check"]
 
     if wl["driver"] == "serve":
-        drv = ServeDriver(port_cfg, sd, xyz, batch, device)
+        # what the check hands the reference: the traffic's own requests,
+        # whatever the timed path made of them
+        served = traffic.requests(pool, batch)
+        drv = ServeDriver(port_cfg, sd, pool, batch, device, net=net)
         for i in range(int(wl["warmup"])):
             drv.call(i)
     elif wl["driver"] == "train":
-        batches = traffic.Batches(xyz, labels, batch, seed)
-        drv = TrainDriver(port_cfg, sd, batches, key, device)
+        batches = traffic.Batches(pool, batch, seed)
+        drv = TrainDriver(port_cfg, sd, batches, key, device, net=net)
         # the check's first steps are the window's own calls on its feed
         prog = {"losses": []}
         for i in range(int(chk["steps"])):
@@ -150,10 +146,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         int(chk["steps"])
     rec = None
     if trace:
-        with tracing.SpanHooks(drv.model, _spans):
-            trace_window = tracing.capture(
-                lambda i: drv.call(n_done + i), int(wl["trace_iters"]),
-                str(root / TRACE_FILE))
+        trace_window = tracing.capture(
+            lambda i: drv.call(n_done + i), int(wl["trace_iters"]),
+            str(root / TRACE_FILE))
         n_done += int(wl["trace_iters"])
 
     # the measured window: calls back to back, each timed from its start
@@ -175,7 +170,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         te = time.perf_counter()
         lat.append(te - ts)
         if wl["driver"] == "serve":
-            sample.offer((drv.request(n_done + i), out))
+            sample.offer((served[(n_done + i) % len(served)], out))
         i += 1
         if te >= deadline:
             break
@@ -201,14 +196,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if wl["driver"] == "serve":
         from reference.serve import ServeReference
 
-        ref = ServeReference(ref_cfg, sd, device)
+        ref = ServeReference(ref_cfg, sd, device, net=net)
         readings = check.serve_readings(
-            sample.items, lambda c: ref(c, PREDICTOR_KEY).cpu().numpy())
+            sample.items,
+            lambda r: ref(r.xyz, PREDICTOR_KEY, r.feat).cpu().numpy())
         del ref
     else:
         from reference.train import TrainReference
 
-        trainer = TrainReference(ref_cfg, sd, batches.per_epoch, device)
+        trainer = TrainReference(ref_cfg, sd, batches.per_epoch, device,
+                                 net=net)
         ref_readings = check.reference_train_readings(trainer, check_batches,
                                                       key)
         readings = check.train_readings(prog, ref_readings)
@@ -218,9 +215,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     _free(device)
     correct, checked = check.verdict(readings, chk["limits"])
 
-    run = Run(cell=cell, driver=wl["driver"], points=int(
-        batch * xyz.shape[1]), calls=i, window_s=window_s, latencies_s=lat,
-        setup_s=setup_s, trace=rec, gc_collections=gc_window)
+    run = Run(cell=cell, driver=wl["driver"],
+              points=int(batch * pool.xyz.shape[1]), calls=i,
+              window_s=window_s, latencies_s=lat, setup_s=setup_s,
+              trace=rec, gc_collections=gc_window)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = m.reader.read(run)

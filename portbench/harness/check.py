@@ -2,8 +2,10 @@
 the plain reference (`reference/`), each number beside its limit.
 
 Serving: for each sampled request and each of its clouds, the served
-logits L against the reference's R on the same cloud and key:
-  * `logit_rel_err`: ‖L − R‖ / ‖R − mean(R)‖ (every point and class);
+logits L against the reference's R on the same cloud, features and key,
+over the whole of the cloud's logits (every point and class of a per-point
+answer [N, C], every class of a per-cloud answer [C]):
+  * `logit_rel_err`: ‖L − R‖ / ‖R − mean(R)‖;
   * `logit_max_gap`: max |L − R| / (max R − min R);
 the worst over the sample.
 
@@ -31,7 +33,8 @@ NOISE_LEAF = 1e-3       # a leaf's gradient under this share of the median
 
 
 def logit_readings(out: np.ndarray, ref: np.ndarray) -> dict:
-    """The serving numbers of one cloud's logits [N, C] (float)."""
+    """The serving numbers of one cloud's logits, [N, C] or [C] (float):
+    each reduces over the whole array."""
     ref = ref.astype(np.float64)
     d = out.astype(np.float64) - ref
     spread = np.linalg.norm(ref - ref.mean())
@@ -41,16 +44,17 @@ def logit_readings(out: np.ndarray, ref: np.ndarray) -> dict:
 
 
 def serve_readings(samples: list, reference) -> dict:
-    """samples: [(request clouds [B, N, 3], served logits [B, N, C])];
-    reference(clouds) → logits [B, N, C] (numpy). The worst of each
-    number over every sampled cloud; the reference runs once per distinct
-    request."""
+    """samples: [(request, served logits [B, N, C] or [B, C])], a request
+    a `traffic.Request` (clouds and their features);
+    reference(request) → logits of the same shape (numpy). The worst of
+    each number over every sampled cloud; the reference runs once per
+    distinct request."""
     worst: dict = {}
     cache: dict = {}
-    for clouds, out in samples:
-        key = id(clouds)
+    for request, out in samples:
+        key = id(request)
         if key not in cache:
-            cache[key] = reference(clouds)
+            cache[key] = reference(request)
         ref = cache[key]
         for b in range(len(out)):
             for k, v in logit_readings(out[b], ref[b]).items():

@@ -3,7 +3,8 @@ what it must fail (`portbench/readings.py` on the card, the tests on the
 CPU): the control, the plain reference put in the program's place and
 computed one precision below the configuration's (fp8 Dense operands for
 its bfloat16), and the faults a cell can have. Each has the interface of
-the driver it replaces."""
+the driver it replaces, and builds the reference network that the
+configuration names (`net`)."""
 
 from __future__ import annotations
 
@@ -28,29 +29,31 @@ def as_reference(cfg):
 class ControlServe:
     """The reference served in fp8 in place of `api.Predictor`."""
 
-    def __init__(self, cfg, state_dict, pool_xyz, batch: int, device):
+    def __init__(self, cfg, state_dict, pool: traffic.Pool, batch: int,
+                 device, net):
         self.ref = ServeReference(as_reference(cfg), state_dict, device,
-                                  precision="fp8")
-        self.model = self.ref.model
-        self.requests = traffic.requests(pool_xyz, batch)
-        self.points = batch * pool_xyz.shape[1]
+                                  precision="fp8", net=net)
+        self.requests = traffic.requests(pool, batch)
+        self.points = batch * pool.xyz.shape[1]
 
-    def request(self, i: int) -> np.ndarray:
+    def request(self, i: int) -> traffic.Request:
         return self.requests[i % len(self.requests)]
 
     def call(self, i: int) -> np.ndarray:
-        return self.ref(self.request(i), PREDICTOR_KEY).cpu().numpy()
+        xyz, feat = self.request(i)
+        return self.ref(xyz, PREDICTOR_KEY, feat).cpu().numpy()
 
     def close(self):
-        self.ref = self.model = None
+        self.ref = None
 
 
 def alter_answer(out: np.ndarray) -> np.ndarray:
-    """The fault "an answer altered where it is produced": in the first
-    point of each cloud, its largest and smallest logits swapped."""
+    """The fault "an answer altered where it is produced": in each cloud's
+    first answer (its first point's logits [B, N, C], or the cloud's own
+    [B, C]), the largest and smallest logits swapped."""
     out = out.copy()
     for b in range(len(out)):
-        row = out[b, 0]
+        row = out[b].reshape(-1, out.shape[-1])[0]
         hi, lo = int(row.argmax()), int(row.argmin())
         row[hi], row[lo] = row[lo], row[hi]
     return out
@@ -70,11 +73,11 @@ class ControlTrain:
     each batch alone, the mean taken over it (`half_batch`, a fault)."""
 
     def __init__(self, cfg, state_dict, batches: traffic.Batches, key,
-                 device, precision: str = "fp8", half_batch: bool = False):
+                 device, net, precision: str = "fp8",
+                 half_batch: bool = False):
         self.trainer = TrainReference(
             as_reference(cfg), {k: v.clone() for k, v in state_dict.items()},
-            batches.per_epoch, device, precision=precision)
-        self.model = self.trainer.model
+            batches.per_epoch, device, precision=precision, net=net)
         self.names = self.trainer.names
         self.batches, self.key, self.half = batches, key, half_batch
         self.points = batches.batch * batches.xyz.shape[1]
@@ -99,7 +102,7 @@ class ControlTrain:
         return {k: v.clone() for k, v in self.trainer.state().items()}
 
     def close(self):
-        self.trainer = self.model = None
+        self.trainer = None
 
 
 def half_batch_train(*args, **kw) -> ControlTrain:

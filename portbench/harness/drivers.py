@@ -2,15 +2,19 @@
 step as a user makes it, returning once its result is on the host:
 
   * `ServeDriver`: `api.Predictor.__call__` on request i mod R (the pool
-    cut into R requests), with the key the Predictor takes when the caller
-    passes none; logits come back as a numpy array [B, N, C].
+    cut into R requests), with the request's per-point features where the
+    pool has them and the key the Predictor takes when the caller passes
+    none; logits come back as a numpy array, [B, N, C] per point or
+    [B, C] per cloud.
   * `TrainDriver`: the trainer's step (`train.steps.make_train_step` on
     `create_train_state`), fed as the trainer feeds it (a `Prefetcher`
-    putting each batch on the device ahead of the step), the loss read as
-    the trainer's log reads it.
+    putting each batch, its features with it, on the device ahead of the
+    step), the loss read as the trainer's log reads it.
 
-Each exposes `model` (the module that forward hooks may open spans on)
-and `points` (the points one call carries)."""
+Each exposes `points` (the points one call carries). Each takes, beside
+the port's configuration, `net`: the reference network's class, which the
+stand-ins of `controls.py` build in the program's place and the port's own
+drivers leave alone."""
 
 from __future__ import annotations
 
@@ -26,33 +30,34 @@ PREDICTOR_KEY = np.array([0, 0], np.uint32)
 
 
 class ServeDriver:
-    def __init__(self, port_cfg, state_dict, pool_xyz: np.ndarray,
-                 batch: int, device):
+    def __init__(self, port_cfg, state_dict, pool: traffic.Pool,
+                 batch: int, device, net=None):
         from gridgcn_torch.api import Predictor
 
         self.predict = Predictor(port_cfg, state_dict, device=device)
-        self.model = self.predict._model
         self.batch = batch
-        self.requests = traffic.requests(pool_xyz, batch)
-        self.points = batch * pool_xyz.shape[1]
+        self.requests = traffic.requests(pool, batch)
+        self.points = batch * pool.xyz.shape[1]
 
-    def request(self, i: int) -> np.ndarray:
-        """The clouds of request i, [B, N, 3]."""
+    def request(self, i: int) -> traffic.Request:
+        """Request i: its clouds [B, N, 3] and features [B, N, C] or
+        None."""
         return self.requests[i % len(self.requests)]
 
     def call(self, i: int) -> np.ndarray:
-        xyz = self.request(i)
-        if self.batch == 1:         # one scan, as a user passes it: [N, 3]
-            return self.predict(xyz[0])[None]
-        return self.predict(xyz)
+        xyz, feat = self.request(i)
+        if self.batch == 1:         # one cloud, as a user passes it: [N, …]
+            return self.predict(xyz[0], None if feat is None
+                                else feat[0])[None]
+        return self.predict(xyz, feat)
 
     def close(self):
-        self.predict = self.model = None
+        self.predict = None
 
 
 class TrainDriver:
     def __init__(self, port_cfg, state_dict, batches: traffic.Batches,
-                 key: np.ndarray, device):
+                 key: np.ndarray, device, net=None):
         from gridgcn_torch.data.pipeline import Prefetcher, to_device
         from gridgcn_torch.models.build import build_model
         from gridgcn_torch.train.steps import (

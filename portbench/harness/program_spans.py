@@ -26,6 +26,7 @@ import bisect
 import collections
 import dataclasses
 import json
+import re
 from pathlib import Path
 
 from harness import readers, tracing
@@ -100,6 +101,12 @@ class Split:
 def has(name: str):
     """within(path) for the paths that pass through span `name`."""
     return lambda p: name in p
+
+
+def in_layer(path: tuple) -> bool:
+    """Whether a path passes through an encoder layer's span,
+    `gridconv{i}`."""
+    return any(re.fullmatch(r"gridconv\d+", n) for n in path)
 
 
 def unspanned(path: tuple) -> bool:

@@ -65,20 +65,6 @@ def kernel_seconds_per_call(run, driver: str, names: tuple):
     return s / tr.iters if s > 0 else None
 
 
-def span_ms_per_call(run, driver: str, part: str):
-    """Device ms per call launched inside the encoder layers' spans:
-    part "gca" sums the `gridconv{i}.gca` spans, "cagq" each
-    `gridconv{i}` span less its GCA's."""
-    tr = traced(run, driver)
-    if tr is None or not tr.span_s:
-        return None
-    layers = [n for n in tr.span_s if "." not in n]
-    gca = sum(tr.span_s.get(n + ".gca", 0.0) for n in layers)
-    total = sum(tr.span_s[n] for n in layers)
-    s = gca if part == "gca" else total - gca
-    return 1e3 * s / tr.iters
-
-
 def percentile_ms(run, q: float):
     if not run.latencies_s:
         return None

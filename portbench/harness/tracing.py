@@ -6,16 +6,12 @@ benchmark reads its traces): the device categories, exclusive time per
 kernel (each instant charged to the innermost active event, so the values
 sum to the union of a device's streams: its busy time), and the refusal
 of a trace whose kernel launches lack their kernel records. Added here:
-the device time of the benchmark's own spans (a device event belongs to
-every span that was open on the launching thread when the host launched
-it, matched by the launch's `correlation`), and the device's idle gaps by
-the host operation that was open during each."""
+the device's idle gaps by the host operation that was open during each.
+The program's own spans are read by `program_spans.py`."""
 
 from __future__ import annotations
 
-import bisect
 import collections
-import contextlib
 import dataclasses
 import json
 import os
@@ -27,7 +23,6 @@ import torch
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function",
                    "cuda_runtime", "cuda_driver")
-SPAN_PREFIX = "portbench/"
 TOP = 10                # entries of each breakdown list
 
 Event = Tuple[int, int, str]   # (start_ps, end_ps, name)
@@ -81,41 +76,6 @@ def union_intervals(events: Iterable[Event]) -> list:
     return out
 
 
-class SpanHooks(contextlib.AbstractContextManager):
-    """Inside the block, a `record_function` span named
-    `portbench/<module name>` around each forward of the model's modules
-    whose names `select(name)` accepts, opened and closed by forward
-    pre- and post-hooks: the benchmark's own spans, no file of the port
-    touched. The hooks are removed on exit."""
-
-    def __init__(self, model: torch.nn.Module, select):
-        self.handles = []
-        self.open: dict = {}
-        for name, mod in model.named_modules():
-            if name and select(name):
-                self.handles.append(mod.register_forward_pre_hook(
-                    self._enter(name)))
-                self.handles.append(mod.register_forward_hook(
-                    self._exit(name)))
-
-    def _enter(self, name):
-        def hook(module, args):
-            rf = torch.autograd.profiler.record_function(SPAN_PREFIX + name)
-            rf.__enter__()
-            self.open.setdefault(name, []).append(rf)
-        return hook
-
-    def _exit(self, name):
-        def hook(module, args, out):
-            self.open[name].pop().__exit__(None, None, None)
-        return hook
-
-    def __exit__(self, *exc):
-        for h in self.handles:
-            h.remove()
-        return False
-
-
 def capture(fn, n: int, path: str) -> float:
     """fn(0) … fn(n − 1) under torch's profiler (host and device activity)
     into the Chrome trace `path`; returns the seconds from the first call
@@ -142,7 +102,6 @@ class TraceRecord:
     kernels: int            # kernel events (launches that ran)
     kernel_s: dict          # {kernel name: device seconds, total}
     exclusive_s: dict       # {kernel name: exclusive device seconds}
-    span_s: dict            # {span name: device seconds launched inside}
     idle_gaps: list         # [[host op, seconds]], longest total first
 
     def breakdown(self) -> dict:
@@ -190,39 +149,7 @@ def read(path: str, iters: int, window_s: float) -> TraceRecord:
         iters=iters, window_s=window_s, busy_s=busy,
         kernels=sum(ev["cat"] == "kernel" for ev in device),
         kernel_s=dict(kernel_s), exclusive_s=dict(exclusive),
-        span_s=_span_seconds(events, device),
         idle_gaps=_idle_gaps(events, per_dev))
-
-
-def _span_seconds(events: list, device: list) -> dict:
-    """{span: device seconds of the work launched while it was open on
-    the launching thread}, for the benchmark's own spans."""
-    dev_s = collections.defaultdict(float)
-    for ev in device:
-        dev_s[ev["args"].get("correlation")] += ev["dur"] / 1e6
-    spans = collections.defaultdict(list)      # tid -> [(start, end, name)]
-    for ev in events:
-        if (ev.get("cat") == "user_annotation"
-                and ev["name"].startswith(SPAN_PREFIX)):
-            spans[ev["tid"]].append((ev["ts"], ev["ts"] + ev["dur"],
-                                     ev["name"][len(SPAN_PREFIX):]))
-    out = collections.defaultdict(float)
-    if not spans:
-        return {}
-    for sp in spans.values():
-        sp.sort()
-    starts = {tid: [s for s, _, _ in sp] for tid, sp in spans.items()}
-    for ev in events:
-        if ev.get("cat") not in ("cuda_runtime", "cuda_driver"):
-            continue
-        c = ev["args"].get("correlation")
-        if c not in dev_s or ev["tid"] not in spans:
-            continue
-        sp, t = spans[ev["tid"]], ev["ts"]
-        for s, e, name in sp[:bisect.bisect_right(starts[ev["tid"]], t)]:
-            if s <= t <= e:
-                out[name] += dev_s[c]
-    return dict(out)
 
 
 def _idle_gaps(events: list, per_dev: dict) -> list:

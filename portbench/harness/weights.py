@@ -2,23 +2,23 @@
 draws: every Dense weight normal at √(2 / fan_in), BatchNorm scales in
 [0.5, 1.5) and running variances in [0.5, 2), every bias and running mean
 0.1·normal (non-trivial BatchNorms, so the fold is exercised), float32 and
-unfolded. Names and shapes come from the reference's module tree, which
-names its tensors as the port does."""
+unfolded. Names and shapes come from the module tree of the reference
+network that the configuration names (`net`, from
+`spec.reference_network`), which names its tensors as the port does."""
 
 from __future__ import annotations
 
 import torch
 
 from reference.layers import BatchNorm, Dense
-from reference.segmentation import GridGCNSegmentation
 from reference.serve import float32_model_config
 
 
-def layout(model_cfg) -> list:
-    """[(name, shape, kind)] of the network's state_dict, kind one of
-    "dense", "scale", "var", "shift"."""
+def layout(model_cfg, net) -> list:
+    """[(name, shape, kind)] of the state_dict of `net(model_cfg)`, kind
+    one of "dense", "scale", "var", "shift"."""
     with torch.device("meta"):
-        model = GridGCNSegmentation(float32_model_config(model_cfg))
+        model = net(float32_model_config(model_cfg))
     out = []
     for name, t in model.state_dict().items():
         mod, _, leaf = name.rpartition(".")
@@ -35,10 +35,11 @@ def layout(model_cfg) -> list:
     return out
 
 
-def make_state_dict(model_cfg, seed: int, device) -> dict:
-    """{name: float32 tensor on device}, drawn from `seed` by one normal
-    and one uniform draw of a generator on the device."""
-    lay = layout(model_cfg)
+def make_state_dict(model_cfg, seed: int, device, net) -> dict:
+    """{name: float32 tensor on device} for `net(model_cfg)`, drawn from
+    `seed` by one normal and one uniform draw of a generator on the
+    device."""
+    lay = layout(model_cfg, net)
     numel = [int(torch.Size(s).numel()) for _, s, _ in lay]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))

@@ -2,8 +2,8 @@
 
 CAGQ (pure index computation) runs first; its indices drive the gathers of
 node positions and features, and GCA does the dense work. The layer's CAGQ
-key is passed in: `GridGCNSegmentation` derives it from the forward's key
-the way flax's `make_rng("cagq")` does in the JAX package.
+key is passed in: the network derives it from the forward's key the way
+flax's `make_rng("cagq")` does in the JAX package.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 port's inference protocol, BatchNorm into each Dense), every layer in
 float32; or in the control's precision (`precision="fp8"`): the
 configuration's own dtypes, with every Dense but the logits taking its
-operands rounded to float8 e4m3, one step below its bfloat16."""
+operands rounded to float8 e4m3, one step below its bfloat16. The network
+is the class that the caller names (`net`): per-point logits [B, N, C] or
+per-cloud logits [B, C]."""
 
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ from .config import Config
 from .fold import fold_batchnorm
 from .layers import Dense
 from .precision import full_fp32
-from .segmentation import GridGCNSegmentation
 
 PRECISIONS = ("float32", "fp8")
 
@@ -47,16 +48,17 @@ def set_precision(model: torch.nn.Module, precision: str) -> None:
 
 
 class ServeReference:
-    """The served network on `device` with `state_dict`'s weights folded
-    anew; `__call__(xyz [B, N, 3], key)` → logits [B, N, C] float32 on
-    the device, every point valid."""
+    """The served network `net` on `device` with `state_dict`'s weights
+    folded anew; `__call__(xyz [B, N, 3], key, feat [B, N, C_in] or
+    None)` → logits float32 on the device ([B, N, C] or [B, C]), every
+    point valid."""
 
     def __init__(self, cfg: Config, state_dict, device,
-                 precision: str = "float32"):
+                 precision: str = "float32", *, net):
         folded, _ = fold_batchnorm({k: v.to(device) for k, v in
                                     state_dict.items()})
         mc = cfg.model
-        model = GridGCNSegmentation(model_config(
+        model = net(model_config(
             mc, precision, fold_bn=True, dtype=mc.eval_dtype or mc.dtype))
         model.load_state_dict(folded)
         set_precision(model, precision)
@@ -64,9 +66,12 @@ class ServeReference:
         self.device = torch.device(device)
 
     @torch.no_grad()
-    def __call__(self, xyz, key: np.ndarray) -> torch.Tensor:
+    def __call__(self, xyz, key: np.ndarray, feat=None) -> torch.Tensor:
         xyz = torch.as_tensor(xyz, dtype=torch.float32, device=self.device)
+        if feat is not None:
+            feat = torch.as_tensor(feat, dtype=torch.float32,
+                                   device=self.device)
         mask = torch.ones(xyz.shape[:2], dtype=torch.bool,
                           device=self.device)
         with full_fp32():
-            return self.model(xyz, None, mask, key).float()
+            return self.model(xyz, feat, mask, key).float()

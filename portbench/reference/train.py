@@ -1,9 +1,10 @@
 """The reference's training step (a frozen copy of the port's
-`train/steps.py` on one device, segmentation only): augmentation, CAGQ,
-forward, the masked cross-entropy without the ignore label, backward, the
-BatchNorm update and optax's Adam with its schedule, every operation in
-float32 (or, for the control, in the configuration's dtypes with fp8
-Dense operands)."""
+`train/steps.py` on one device, segmentation only; the network is the
+class that the caller names): augmentation (the features' geometric
+columns turning with the cloud), CAGQ, forward, the masked cross-entropy
+without the ignore label, backward, the BatchNorm update and optax's Adam
+with its schedule, every operation in float32 (or, for the control, in the
+configuration's dtypes with fp8 Dense operands)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ from .augment import augment_batch
 from .config import Config
 from .layers import update_batch_stats
 from .precision import full_fp32
-from .segmentation import GridGCNSegmentation
 from .serve import model_config, set_precision
 
 _f32 = np.float32
@@ -120,21 +120,22 @@ def seg_loss(cfg: Config, logits: torch.Tensor, labels: torch.Tensor,
 
 
 class TrainReference:
-    """The training step on `device` from `state_dict`'s weights:
-    `step(batch, rng)` takes a batch of numpy arrays ("xyz", "label",
-    "mask") and the trainer's base key, and returns (loss, the gradients
+    """The training step of the network `net` on `device` from
+    `state_dict`'s weights: `step(batch, rng)` takes a batch of numpy
+    arrays ("xyz", "label", "mask", and "feat" where the cloud has
+    features) and the trainer's base key, and returns (loss, the gradients
     in `names`' order as the optimizer gets them). `names` are the
     parameters', `state()` every parameter and buffer by name."""
 
     def __init__(self, cfg: Config, state_dict, steps_per_epoch: int,
-                 device, precision: str = "float32"):
+                 device, precision: str = "float32", *, net):
         if cfg.model.task != "seg":
             raise ValueError("the reference trains segmentation models")
         if cfg.train.class_weighting:
             raise ValueError("class weighting is not in the reference")
         self.cfg = cfg
         self.device = torch.device(device)
-        model = GridGCNSegmentation(model_config(cfg.model, precision))
+        model = net(model_config(cfg.model, precision))
         model.load_state_dict(state_dict)
         set_precision(model, precision)
         self.model = model.to(self.device)
@@ -153,13 +154,17 @@ class TrainReference:
         mask = torch.as_tensor(batch["mask"], dtype=torch.bool, device=dev)
         labels = torch.as_tensor(batch["label"], dtype=torch.int64,
                                  device=dev)
+        feat = batch.get("feat")
+        if feat is not None:
+            feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
         k_aug, k_cagq, k_drop = jaxrng.split(
             jaxrng.fold_in(rng, self.tx.count), 3)
         model = self.model.train()
         with full_fp32():
-            xyz, mask, _ = augment_batch(xyz, mask, k_aug, self.cfg.data)
+            xyz, mask, feat = augment_batch(xyz, mask, k_aug, self.cfg.data,
+                                            feat=feat)
             with torch.enable_grad():
-                logits = model(xyz, None, mask, k_cagq, k_drop)
+                logits = model(xyz, feat, mask, k_cagq, k_drop)
                 loss = seg_loss(self.cfg, logits, labels, mask)
                 grads = torch.autograd.grad(loss, self.tx.params,
                                             allow_unused=True)

@@ -93,7 +93,7 @@ def test_half_batch_is_not_correct(root, monkeypatch):
 def _command(cwd, env=None):
     return subprocess.run(
         [sys.executable, "portbench/run.py", "--workload",
-         "scannet_whole_scene.b1", "--seed", "1", "--seconds", "1",
+         "scannet_whole_scene.b4", "--seed", "1", "--seconds", "1",
          "--trace", "0"], cwd=cwd, capture_output=True, text=True,
         timeout=300, env=env)
 
@@ -127,7 +127,7 @@ def test_cell_on_the_card():
         pytest.skip("needs a CUDA card")
     p = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload",
-         "scannet_whole_scene.b1", "--seed", "5", "--seconds", "3",
+         "scannet_whole_scene.b4", "--seed", "5", "--seconds", "3",
          "--trace", "0"], cwd=spec.ROOT, capture_output=True, text=True,
         timeout=1200)
     assert p.returncode == 0, p.stderr[-2000:]

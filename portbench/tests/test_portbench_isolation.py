@@ -32,9 +32,12 @@ def test_no_forbidden_import(path):
 
 
 def test_reference_imports_nothing_of_the_port():
+    """The reference, and the reference network that the tests add as a
+    file (`tests/added/reference/`)."""
     allowed = {"__future__", "contextlib", "dataclasses", "hashlib", "json",
                "math", "typing", "numpy", "torch"}
-    for path in (BENCH / "reference").glob("*.py"):
+    for path in [*(BENCH / "reference").glob("*.py"),
+                 *(BENCH / "tests/added/reference").glob("*.py")]:
         assert imported_top_levels(path) <= allowed, path.name
 
 

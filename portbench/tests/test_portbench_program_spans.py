@@ -2,9 +2,11 @@
 launches by the innermost span open at the launch (matched by
 `correlation`), the device's idle gaps charged to the innermost span open
 at each gap's middle, "(outside the program)" where none is, host self
-time, the coverage share, and the five readers on it: a number from the
+time, the coverage share, and the readers on it: a number from the
 program's spans, None where the harness refused the trace or where the
-trace has no program span."""
+trace has no program span. The CAGQ and GCA readers also on a trace of
+two encoder layers and a decoder stage whose grid query has CAGQ's spans
+outside every layer."""
 
 import json
 import shutil
@@ -16,7 +18,8 @@ from harness import program_spans, spec
 
 READERS = ["rng_launches_per_request.serve", "cagq_idle_share.serve",
            "decoder_device_ms.serve", "fetch_device_ms.serve",
-           "unspanned_launch_share.serve"]
+           "unspanned_launch_share.serve", "cagq_device_ms.serve",
+           "gca_device_ms.serve"]
 REQ = ("request",)
 LAYER = REQ + ("gridconv0",)
 
@@ -137,7 +140,10 @@ def test_readers(readers):
         "cagq_idle_share.serve": 100 * 33 / 100,
         "decoder_device_ms.serve": 14e-3 / 2,
         "fetch_device_ms.serve": 30e-3 / 2,
-        "unspanned_launch_share.serve": 100 * 2 / 7})
+        "unspanned_launch_share.serve": 100 * 2 / 7,
+        # gridconv0 less its gca: the draw 8 µs and voxelize's own 5
+        "cagq_device_ms.serve": 13e-3 / 2,
+        "gca_device_ms.serve": 22e-3 / 2})
     for n, m in mods.items():
         assert m.info(run), n
     assert "gridconv0/voxelize/jaxrng" in \
@@ -155,3 +161,39 @@ def test_readers_read_none_without_a_sound_trace_or_spans(readers):
         assert m.read(run) is None and m.info(run) is None
     train = SimpleNamespace(driver="train", trace=SimpleNamespace(iters=2))
     assert all(m.read(train) is None for m in mods.values())
+
+
+# µs: two layers, each CAGQ (voxelize, then group) and GCA, then a decoder
+# stage whose grid query runs voxelize outside every layer
+LAYERS = [
+    _span("request#0", 0, 300),
+    _span("gridconv0", 0, 100), _span("voxelize", 0, 30),
+    _span("group", 30, 20), _span("gca", 50, 50),
+    _span("gridconv1", 100, 100), _span("sample", 100, 40),
+    _span("gca", 140, 60),
+    _span("up0", 200, 100), _span("voxelize", 200, 50),
+    *_launch(1, 5, "kernel", "k_vox0", 10, 3),
+    *_launch(2, 35, "kernel", "k_grp0", 40, 4),
+    *_launch(3, 60, "kernel", "k_gca0", 65, 7),
+    *_launch(4, 110, "kernel", "k_smp1", 115, 11),
+    *_launch(5, 150, "kernel", "k_gca1", 155, 13),
+    *_launch(6, 210, "kernel", "k_vox_up", 215, 17),
+]
+
+
+def test_cagq_and_gca_by_layer(readers):
+    mods, write = readers
+    write(LAYERS)
+    run = _run()
+    # CAGQ: 3 + 4 (layer 0) + 11 (layer 1); the decoder's voxelize is not
+    # a layer's; GCA: 7 + 13
+    assert mods["cagq_device_ms.serve"].read(run) == pytest.approx(
+        18e-3 / 2)
+    assert mods["gca_device_ms.serve"].read(run) == pytest.approx(20e-3 / 2)
+    assert "request/gridconv1/sample" in \
+        mods["cagq_device_ms.serve"].info(run)
+    # a program without the layers' spans (gca alone) gives neither
+    write([e for e in LAYERS if "gridgcn/gridconv" not in e["name"]])
+    run = _run()                # a new traced run: its trace read anew
+    assert mods["cagq_device_ms.serve"].read(run) is None
+    assert mods["gca_device_ms.serve"].read(run) is None

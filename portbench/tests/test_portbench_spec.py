@@ -70,6 +70,19 @@ def test_cell_files_found(name):
     assert set(cell.workload["check"]["limits"])
 
 
+@pytest.mark.parametrize("name", CELLS)
+def test_generator_and_reference_found(name):
+    """Each cell's generator file and the reference network its
+    configuration names (the default where it names none)."""
+    cell = spec.load_cell(name)
+    gen = spec.load_generator(cell.bench_dir, cell.workload["generator"])
+    assert callable(gen)
+    net = spec.reference_network(cell.config_file, cell.bench_dir)
+    module, _, cls = cell.config_file.get(
+        "reference_model", spec.DEFAULT_REFERENCE).partition(":")
+    assert net.__name__ == cls and net.__module__ == f"reference.{module}"
+
+
 def test_metric_files_match_their_entries():
     import tiny
 

@@ -15,7 +15,8 @@ def _cfg():
              "use_coverage": True, "use_context_pool": True,
              "context_channels": 2, "att_hidden": 5, "pool": "max"}
     return {"data": {"num_points": 16},
-            "model": {"in_channels": 0, "use_xyz_feature": True,
+            "model": {"task": "seg", "in_channels": 0,
+                      "use_xyz_feature": True,
                       "layers": [layer], "num_classes": 3, "head": [7],
                       "up_layers": [{"mlp": [9], "k_interp": 3,
                                      "method": "pallas"}]}}
@@ -34,6 +35,38 @@ def test_forward_by_hand():
     dec = 2 * (B * 16) * (6 + 3) * 9              # 16 queries, 6 + xyz → 9
     head = 2 * (B * 16) * 9 * 7 + 2 * (B * 16) * 7 * 3
     assert forward_flops(_cfg(), B) == edge + ctx + att + dec + head
+
+
+def test_forward_with_features_by_hand():
+    """Two input channels beside xyz widen the first layer's edge and
+    context inputs (7 → 9) and the last decoder stage's skip (6 + 5)."""
+    cfg = _cfg()
+    cfg["model"]["in_channels"] = 2
+    B = 2
+    edge = 2 * (B * 8 * 4) * (5 + 4) * 6
+    ctx = 2 * (B * 8) * (5 + 4) * 2
+    att = 2 * (B * 8 * 4) * (4 + 2 + 2) * 5 + 2 * (B * 8 * 4) * 5 * 1
+    dec = 2 * (B * 16) * (6 + 5) * 9
+    head = 2 * (B * 16) * 9 * 7 + 2 * (B * 16) * 7 * 3
+    assert forward_flops(cfg, B) == edge + ctx + att + dec + head
+
+
+def test_classifier_by_hand():
+    """A classifier: the same encoder, no decoder, the head and logits on
+    each cloud's one pooled row."""
+    cfg = _cfg()
+    cfg["model"]["task"] = "cls"
+    B = 2
+    edge = 2 * (B * 8 * 4) * (3 + 4) * 6
+    ctx = 2 * (B * 8) * (3 + 4) * 2
+    att = 2 * (B * 8 * 4) * (4 + 2 + 2) * 5 + 2 * (B * 8 * 4) * 5 * 1
+    head = 2 * B * 6 * 7 + 2 * B * 7 * 3             # 6 → 7 → 3 classes
+    assert forward_flops(cfg, B) == edge + ctx + att + head
+    assert decoder_calls(cfg) == []
+    assert knn3_bytes(cfg, B) == 0 and knn3_pairs(cfg, B) == 0
+    cfg["model"]["task"] = "seg"
+    cfg["model"]["up_layers"] = []
+    assert decoder_calls(cfg) == [] and knn3_bytes(cfg, B) == 0
 
 
 def test_one_decoder_call():

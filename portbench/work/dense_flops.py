@@ -1,8 +1,11 @@
 """The dense layers' floating-point operations of one forward pass: every
-Dense of each GCA (edge MLP, attention MLP and context projection), each
-decoder stage's MLP, the head and the logits, at every one of the K
-neighbour slots (the dense work runs on all of them, masked or not), 2
-operations a multiply-add. Biases, activations and pooling are left out."""
+Dense of each GCA (edge MLP, attention MLP and context projection), at
+every one of the K neighbour slots (the dense work runs on all of them,
+masked or not), then by the configuration's task: for segmentation
+(`"seg"`) each decoder stage's MLP and the head and logits on every input
+point, for classification (`"cls"`) no decoder and the head and logits on
+each cloud's one pooled row. 2 operations a multiply-add. Biases,
+activations and pooling are left out."""
 
 from __future__ import annotations
 
@@ -38,8 +41,11 @@ def forward_flops(cfg: dict, batch: int) -> int:
         if layer.get("pool", "max") == "maxsum":
             c = int(layer["mlp"][-1])
             ops += 2 * batch * M * 2 * c * c
-    L = len(m["layers"])
     c = w[-1]
+    if m.get("task", "cls") == "cls":            # the global max-pool
+        head, c = _mlp(batch, c, m["head"])
+        return ops + head + 2 * batch * c * int(m["num_classes"])
+    L = len(m["layers"])
     for i, up in enumerate(m["up_layers"]):
         q = n[L - 1 - i]
         c += w[L - 1 - i] or 3

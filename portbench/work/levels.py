@@ -21,9 +21,14 @@ def widths(cfg: dict) -> list:
 
 def decoder_calls(cfg: dict) -> list:
     """[(queries, supports, k, method)] of each decoder stage's k-NN, per
-    cloud: stage i interpolates from level L − i to level L − 1 − i."""
+    cloud: stage i interpolates from level L − i to level L − 1 − i. A
+    classifier (task `"cls"`) and a configuration without `up_layers` have
+    none."""
+    m = cfg["model"]
+    if m.get("task", "cls") == "cls":
+        return []
     n = point_counts(cfg)
-    L = len(cfg["model"]["layers"])
+    L = len(m["layers"])
     return [(n[L - 1 - i], n[L - i], int(up.get("k_interp", 3)),
              up.get("method", "auto"))
-            for i, up in enumerate(cfg["model"]["up_layers"])]
+            for i, up in enumerate(m.get("up_layers", ()))]
