@@ -7,7 +7,9 @@ JAX package's `models/classifier.py`. Module names follow flax
 (`gridconv{i}`, `head_dense{h}`, `head_bn{h}`, `logits`), so converted
 weights load by name and `models.fold` folds them. Training mode works as
 in `models/segmentation.py`; the head's dropout layers are flax's compact
-`Dropout_{h}` modules, each with its own key.
+`Dropout_{h}` modules, each with its own key. Each stage is the span
+`gridconv{i}`, as in the segmentation network; the pool, the head MLP and
+the logits are the span `head`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from gridgcn_torch.configs.base import ModelConfig
 from gridgcn_torch.models.gridconv import GridConv, run_stage
 from gridgcn_torch.models.layers import Dense, add_mlp, run_mlp, to_dtype
 from gridgcn_torch.utils.jaxrng import flax_make_rng
+from gridgcn_torch.utils.profiling import annotate
 
 _NEG_INF = -1e30
 
@@ -61,17 +64,19 @@ class GridGCNClassifier(nn.Module):
         for i in range(len(cfg.layers)):
             # flax: self.make_rng("cagq") inside module gridconv{i}
             k = flax_make_rng(key, (f"gridconv{i}",), 1)
-            xyz, feat, mask = run_stage(getattr(self, f"gridconv{i}"),
-                                        cfg.remat, xyz, feat, mask, k, None,
-                                        row0)
+            with annotate(f"gridconv{i}"):
+                xyz, feat, mask = run_stage(getattr(self, f"gridconv{i}"),
+                                            cfg.remat, xyz, feat, mask, k,
+                                            None, row0)
 
-        # global masked max-pool (in the compute dtype); a cloud with no
-        # valid center pools to 0
-        x = torch.where(mask[..., None], feat, _NEG_INF).amax(dim=-2)
-        x = torch.where(mask.any(dim=-1, keepdim=True), x, 0.0)
         keys = None if dropout_key is None else [
             flax_make_rng(dropout_key, (f"Dropout_{h}",), 1)
             for h in range(len(cfg.head))]
-        x = run_mlp(self, "head", len(cfg.head), x, cfg.fold_bn, cfg.dropout,
-                    keys, row0)
-        return self.logits(x)
+        with annotate("head"):
+            # global masked max-pool (in the compute dtype); a cloud with no
+            # valid center pools to 0
+            x = torch.where(mask[..., None], feat, _NEG_INF).amax(dim=-2)
+            x = torch.where(mask.any(dim=-1, keepdim=True), x, 0.0)
+            x = run_mlp(self, "head", len(cfg.head), x, cfg.fold_bn,
+                        cfg.dropout, keys, row0)
+            return self.logits(x)
