@@ -19,9 +19,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the CPU (plain versions), at full width on a small scene (f32) and
      on the full 81920-point scene (bf16, the preset's dtype);
   5. serving: scannet_whole_scene at full width with seeded random weights,
-     3 requests and one predict_scene(votes=2) on 81920-point scenes; the
-     kernel launch counters are read around exactly this run (the draw
-     kernel 8 launches a forward);
+     3 requests and one predict_scene(votes=2) on 81920-point scenes, on
+     the main path (the default Predictor: a signature's first call eager,
+     its second captured, every later call a replay); the kernel launch
+     counters are read over the capture that these forwards replay
+     (knn3_mxu 4 launches, the draw kernel 8 a forward), and stay still
+     over the replays;
   6. the other presets' paths, each served forward on the card against the
      same forward on the CPU (f32 and bf16 gates, and the share of CAGQ
      center voxels the two devices chose alike): modelnet40_cas (16 clouds
@@ -33,9 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. classifier serving: modelnet40_full and modelnet40_cas at full width,
      16 clouds of 1024 points per request, in bf16 (eval_dtype);
   8. CAS segmentation serving: scannet_seg at full width, 8 scenes of 8192
-     points per request, CAS with 3 rounds; knn3_mxu launches 4 times per
-     scene (once per decoder stage and cloud), the draw kernel 23 times a
-     forward;
+     points per request, CAS with 3 rounds, replayed; its capture launches
+     knn3_mxu 4 times per scene (once per decoder stage and cloud), the
+     draw kernel 23 times; then the CUDA-graph replay (the default
+     Predictor on one card) against the eager forward (graphs=False, the
+     bit-for-bit reference) for scannet_whole_scene (4 x 81920),
+     scannet_seg (8 x 8192) and modelnet40_cas (16 x 1024): logits bit for
+     bit under two keys, one capture, the replays counted, the capture's
+     host counters an eager forward's and still over the replays, and a
+     trace of one replay holding the kernels the capture launched;
   9. training draws: jaxrng.normal (10^6 draws) and xla_math.erf_inv the
      same bits on the card as on the CPU; the draw kernel's device and
      host µs a launch by epilogue beside its plain version's;
@@ -446,18 +455,58 @@ def correctness_phase(torch, np, Predictor, cfg, sd, scene_fn, jaxrng):
     assert agree16 >= 0.98 and max16 <= 0.1 * s16
 
 
-def serving_phase(torch, np, knn, pred, scenes, jaxrng):
-    """3 requests and one predict_scene(votes=2): the counted main path."""
-    for _ in range(2):                                   # warm-up
-        pred(scenes[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def kernel_counters(knn, jaxrng):
+    """The kernels' host counters: knn3_mxu's and knn3_exact's launches by
+    list length, the support pack's, the draw kernel's by epilogue."""
+    return {"knn3_mxu": dict(knn.knn3_mxu.launches_by_k),
+            "knn3_exact": dict(knn.knn3_exact.launches_by_k),
+            "mxu_pack_support": knn.mxu_pack_support.launches,
+            "draws": dict(jaxrng.launches)}
+
+
+def zero_kernel_counters(knn, jaxrng):
     knn.knn3_mxu.launches = 0
     knn.knn3_exact.launches = 0
     knn.knn3_mxu.launches_by_k.clear()
     knn.knn3_exact.launches_by_k.clear()
     knn.mxu_pack_support.launches = 0
-    draws0 = dict(jaxrng.launches)
+    for k in jaxrng.launches:
+        jaxrng.launches[k] = 0
+
+
+def captured_counters(torch, knn, jaxrng, pred, *args):
+    """The kernels' host counters over the capture of pred(*args): pred's
+    signature is called once (eagerly), the counters zeroed, then called
+    again, which captures the forward that every later call replays. The
+    capture launches each kernel once a launch of the forward, so these
+    are the main path's launches a forward."""
+    captures = pred.captures
+    pred(*args)
+    torch.cuda.synchronize()
+    zero_kernel_counters(knn, jaxrng)
+    pred(*args)
+    assert pred.captures == captures + 1, "the second call did not capture"
+    return kernel_counters(knn, jaxrng)
+
+
+def serving_phase(torch, np, knn, pred, scenes, jaxrng):
+    """3 requests and one predict_scene(votes=2) on the main path, the
+    default Predictor: a signature's first call eager, its second
+    captured, every later call a replay. The kernels' host counters are
+    read over the capture, which every replay runs (knn3_mxu and its
+    support pack 4 launches a forward, the draw kernel 8), and stay still
+    over the 5 replayed forwards. Returns the launches of the 5 forwards
+    (the capture's a forward, 5 times) and the median latency."""
+    got = captured_counters(torch, knn, jaxrng, pred, scenes[0])
+    per = {"knn3_mxu": got["knn3_mxu"], "knn3_exact": got["knn3_exact"]}
+    assert per == {"knn3_mxu": {3: 4}, "knn3_exact": {}}, got
+    assert got["mxu_pack_support"] == 4, got
+    # one draw kernel a draw: each of the 4 layers' voxel build (bits) and
+    # threshold RVS (uniform)
+    assert got["draws"] == {"bits": 4, "uniform": 4, "gumbel": 0}, got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    replays = pred.replays
     lat, wall = [], []
     for xyz in scenes:
         start = torch.cuda.Event(enable_timing=True)
@@ -474,20 +523,15 @@ def serving_phase(torch, np, knn, pred, scenes, jaxrng):
     voted = pred.predict_scene(scenes[0], votes=2,
                                rng=jaxrng.PRNGKey(0))
     assert voted.shape == (81920, 21) and np.isfinite(voted).all()
-    launches = {"knn3_mxu": dict(knn.knn3_mxu.launches_by_k),
-                "knn3_exact": dict(knn.knn3_exact.launches_by_k)}
     forwards = len(scenes) + 2
-    assert knn.knn3_mxu.launches == 4 * forwards, launches
-    assert launches["knn3_mxu"] == {3: 4 * forwards}, launches
-    assert knn.mxu_pack_support.launches == 4 * forwards
-    # one draw kernel a draw: each of the 4 layers' voxel build (bits) and
-    # threshold RVS (uniform)
-    draws = {k: v - draws0[k] for k, v in jaxrng.launches.items()}
-    assert draws == {"bits": 4 * forwards, "uniform": 4 * forwards,
-                     "gumbel": 0}, draws
+    assert pred.replays - replays == forwards
+    assert kernel_counters(knn, jaxrng) == got, "a replay launched a kernel"
+    launches = {n: {k: v * forwards for k, v in d.items()}
+                for n, d in per.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"serving: {forwards} forwards, launches {launches}, draw kernels "
-          f"{draws}; per-scene "
+    print(f"serving: {forwards} replayed forwards of one capture, launches "
+          f"{launches} (the capture's {per} a forward), draw kernels "
+          f"{got['draws']} a forward; per-scene "
           f"latency median {statistics.median(lat):.3f} ms (CUDA events; "
           f"{[round(x, 3) for x in lat]}), host wall median "
           f"{statistics.median(wall):.3f} ms; peak memory "
@@ -708,10 +752,12 @@ def classifier_serving_phase(torch, np, Predictor, presets, init_model):
 def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches,
                           jaxrng):
     """scannet_seg (CAS, 3 rounds, bf16 with f32 BatchNorm) at full width,
-    8 scenes of 8192 points per request, 5 requests after warm-up; every
-    forward launches knn3_mxu once per decoder stage and cloud, and the
-    draw kernel 23 times: 4 voxel builds and 9 permutation rounds (bits),
-    10 Gumbel top-k's (CAS's starts and challengers, layers 2-3's RVS)."""
+    8 scenes of 8192 points per request, 5 requests after warm-up, on the
+    main path (the default Predictor, replayed); its capture launches
+    knn3_mxu once per decoder stage and cloud, and the draw kernel 23
+    times: 4 voxel builds and 9 permutation rounds (bits), 10 Gumbel
+    top-k's (CAS's starts and challengers, layers 2-3's RVS); the replays
+    launch none from the host."""
     assert all(l.cas_iters == 3 for l in cfg.model.layers
                if l.sampler == "cas")
     pred = Predictor(cfg, sd, device="cuda")
@@ -720,19 +766,108 @@ def cas_seg_serving_phase(torch, np, knn, Predictor, cfg, sd, batches,
         assert out.shape == (8, 8192, 21) and out.dtype == np.float32
         assert np.isfinite(out).all()
 
-    pred(batches[0])
-    knn.knn3_mxu.launches = 0
-    draws0 = dict(jaxrng.launches)
-    check(pred(batches[0]))
-    assert knn.knn3_mxu.launches == 4 * 8, knn.knn3_mxu.launches
-    draws = {k: v - draws0[k] for k, v in jaxrng.launches.items()}
+    # the main path's launches a forward, counted over the capture that
+    # every later call replays
+    got = captured_counters(torch, knn, jaxrng, pred, batches[0])
+    assert got["knn3_mxu"] == {3: 4 * 8}, got
+    draws = got["draws"]
     assert draws == {"bits": 13, "uniform": 0, "gumbel": 10}, draws
+    replays = pred.replays
     lat, wall, peak = timed_requests(torch, pred, batches, check)
+    assert pred.replays - replays == 2 + len(batches)
+    assert kernel_counters(knn, jaxrng) == got, "a replay launched a kernel"
     print(f"scannet_seg (CAS x3, bf16, 8 x 8192 pts): per-batch latency "
           f"median {statistics.median(lat):.3f} ms (CUDA events; "
           f"{[round(x, 3) for x in lat]}), host wall median "
           f"{statistics.median(wall):.3f} ms; peak memory {peak:.1f} MiB; "
           f"knn3_mxu launches per forward {4 * 8}, draw kernels {draws}")
+
+
+def graphs_phase(torch, np, Predictor, presets, init_model, knn, jaxrng,
+                 scene_fn):
+    """The served forward replayed from CUDA graphs (the default Predictor
+    on one card) against the eager forward (graphs=False, the bit-for-bit
+    reference) for the benchmark's three configurations at their cells'
+    shapes, seeded weights: scannet_whole_scene 4 x 81920, scannet_seg 8 x
+    8192, modelnet40_cas 16 x 1024. Gates: the first call (eager), the
+    capture and the replays bit for bit the eager logits under two keys;
+    one capture; the replays counted; the capture's host counters those
+    of an eager forward (knn3_mxu 16 / 32 / 0, the draw kernel 8 / 23 / 18)
+    and still over the replays; a trace of one replay holding as many
+    knn3_mxu and draw kernels as the capture launched; no two answers
+    sharing memory. Printed: host wall ms per request, median of 5, eager
+    and replayed."""
+    import os
+    import shutil
+
+    from gridgcn_torch.utils import profiling, traceview
+
+    cases = {
+        "scannet_whole_scene": np.stack([scene_fn(81920, seed=7 + i)
+                                         for i in range(4)]),
+        "scannet_seg": crop_batch(np, scene_fn, 8, seed=40),
+        "modelnet40_cas": classifier_clouds(np, 16, 1024, seed=0)}
+    expect = {"scannet_whole_scene": (16, 8), "scannet_seg": (32, 23),
+              "modelnet40_cas": (0, 18)}    # knn3_mxu, draws a forward
+    k2 = jaxrng.fold_in(jaxrng.PRNGKey(9), 3)
+
+    def bits(a):
+        return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+    def wall_ms(fn):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return round(statistics.median(t), 3)
+
+    for name, xyz in cases.items():
+        cfg = presets.get(name)
+        _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
+        eager = Predictor(cfg, sd, device="cuda", graphs=False)
+        graphed = Predictor(cfg, sd, device="cuda")
+        eager(xyz)
+        zero_kernel_counters(knn, jaxrng)
+        want = eager(xyz)
+        per = kernel_counters(knn, jaxrng)
+        want2 = eager(xyz, rng=k2)
+        got = [graphed(xyz)]                     # eager
+        zero_kernel_counters(knn, jaxrng)
+        got.append(graphed(xyz))                 # captured and replayed
+        captured = kernel_counters(knn, jaxrng)
+        got += [graphed(xyz), graphed(xyz, rng=k2)]
+        still = kernel_counters(knn, jaxrng) == captured
+        replays = graphed.replays
+        logdir = os.path.join("build", "chip_smoke_graphs", name)
+        shutil.rmtree(logdir, ignore_errors=True)
+        with profiling.trace(logdir, cpu=False):
+            graphed(xyz)
+        names = [n for ev in traceview.load_events(logdir).values()
+                 for _, _, n in ev]
+        traced = (sum("knn3_mxu_kernel" in n for n in names),
+                  sum("draw_kernel" in n for n in names))
+        lost = traceview.lost_records(logdir)
+        ms = (wall_ms(lambda: eager(xyz)), wall_ms(lambda: graphed(xyz)))
+        same = all(np.array_equal(bits(g), bits(w))
+                   for g, w in zip(got, [want] * 3 + [want2]))
+        launched = (sum(captured["knn3_mxu"].values()),
+                    sum(captured["draws"].values()))
+        print(f"graphs {name} {list(xyz.shape)}: eager call, capture and "
+              f"replays bit for bit the eager logits under 2 keys {same}; "
+              f"captures {graphed.captures}, replays {graphed.replays}; "
+              f"the capture's host counters {captured} (an eager forward's "
+              f"{per}), still over the replays {still}; one replay's trace: "
+              f"knn3_mxu and draw kernels {traced}, device events "
+              f"{len(names)}, launches without a record {lost}; host wall "
+              f"ms a request eager / replayed {ms[0]} / {ms[1]}")
+        assert same and still
+        assert captured == per and launched == expect[name], (captured,
+                                                              per)
+        assert lost[0] == 0 and traced == launched, (traced, lost)
+        assert graphed.captures == 1 and replays == 2
+        assert graphed.replays == 3 + 5
+        assert not np.shares_memory(got[2], got[3])
 
 
 def profiled(torch, name, fn):
@@ -1772,8 +1907,8 @@ def trace_cost_phase(torch, knn, pred, xyz):
     (the same folded forward at [1, 81920], the same weights) loaded and
     priced by utils.hlocost (touched bytes, gather rows, flops, the bytes
     floor). Gates: device events in the trace; no outer-dim scan kernel
-    (`scan_outer_dim`) in it; knn3_mxu launched 4 times
-    a request under it, and its kernel among the report's rows; the
+    (`scan_outer_dim`) in it; knn3_mxu's kernel 4 times a request in it
+    (the requests replay one capture), and among the report's rows; the
     trace's busy time within 2% of the profiler's summed device self time
     (one stream); exactly 4 gridgcn.knn3_mxu custom-call rows in the
     graph; 0 < floor / busy <= 1."""
@@ -1791,12 +1926,10 @@ def trace_cost_phase(torch, knn, pred, xyz):
     shutil.rmtree(logdir, ignore_errors=True)
     iters = 10
     pred(xyz)
-    n0 = knn.knn3_mxu.launches
     with profiling.trace(logdir) as prof:
         for _ in range(iters):
             pred(xyz)
         torch.cuda.synchronize()
-    launched = knn.knn3_mxu.launches - n0
     with open(os.path.join(logdir, "trace.json")) as f:
         cats = collections.Counter(e.get("cat") for e in
                                    json.load(f)["traceEvents"]
@@ -1806,6 +1939,9 @@ def trace_cost_phase(torch, knn, pred, xyz):
           f"{list(traceview.DEVICE_CATEGORIES)}")
     devices = traceview.load_events(logdir)
     assert devices, "the trace holds no device events"
+    # the requests replay one capture: the kernels that ran, from the trace
+    launched = sum("knn3_mxu_kernel" in n for ev in devices.values()
+                   for _, _, n in ev)
     rep = traceview.report(logdir, iters=iters, topn=40)
     print(rep)
     busy = profiling.busy_ms_per_iter(logdir, iters)
@@ -1820,7 +1956,7 @@ def trace_cost_phase(torch, knn, pred, xyz):
     print(f"trace: busy {busy:.4f} ms per request (traceview, "
           f"{sorted(devices)}), profiler device self time {prof_busy:.4f} "
           f"ms; CUDA-events latency {latency:.4f} ms per request; idle share "
-          f"{1 - busy / latency:.4f}; knn3_mxu launches under the trace "
+          f"{1 - busy / latency:.4f}; knn3_mxu kernels in the trace "
           f"{launched}")
     # the voxel tables' prefix sums: a last-dim scan, never the outer-dim
     # scan that gives each column one thread
@@ -1846,7 +1982,7 @@ def trace_cost_phase(torch, knn, pred, xyz):
           f"{fl['row_ms']}); floor_frac {floor_frac:.6f} of the traced busy "
           f"ms; achieved {fl['flops'] / busy / 1e9:.4f} TFLOP/s; nodes of "
           f"<= 64 output bytes (the key's words, derived on the device in "
-          f"the program and in numpy by the live Predictor) {len(tiny)}, "
+          f"the program and in the live Predictor's replay) {len(tiny)}, "
           f"{sum(r['touched'] for r in tiny)} B; top rows "
           f"by touched bytes "
           f"{[(r['name'], r['opcode'], r['touched']) for r in rows[:5]]}; "
@@ -1882,7 +2018,9 @@ def _trace_repeat_worker(root: str) -> None:
 
     cfg = presets.scannet_whole_scene()
     _, sd = init_model(cfg.model, torch.Generator().manual_seed(0))
-    pred = Predictor(cfg, sd, device="cuda")
+    # eager: these traces study the profiler's records of kernels that the
+    # host launched one by one (a replay launches a few graphs)
+    pred = Predictor(cfg, sd, device="cuda", graphs=False)
     xyz = synthetic_scene_surface(81920, seed=7)
     call = two_kernel_call(torch, knn)
     pred(xyz)
@@ -3022,7 +3160,7 @@ def coord_phase(torch, np, Predictor, cfg, sd, xyz):
         calls.append((args, kw))
         return real(*args, **kw)
 
-    pred = Predictor(cfg, sd, device="cuda")
+    pred = Predictor(cfg, sd, device="cuda")       # its first call: eager
     gridconv.cagq = recording
     try:
         pred(xyz)
@@ -3275,6 +3413,9 @@ def main() -> int:
                           "classifier")
         cas_seg_serving_phase(torch, np, knn, Predictor, seg_cfg, seg_sd,
                               crops, jaxrng)
+    with phase("cuda graphs"):
+        graphs_phase(torch, np, Predictor, presets, init_model, knn, jaxrng,
+                     synthetic_scene_surface)
 
     with phase("training correctness"):
         rng_phase(torch, jaxrng, xla_math)

@@ -27,6 +27,18 @@ the mesh size), and `predict_scenes` serves B scenes at once on a 2-D
 (scene × slab) mesh of the same ranks, built at first use. Each call runs
 with TF32 off (`utils.precision.full_fp32`), the caller's setting restored
 after.
+
+On one CUDA device without a mesh the forward replays from CUDA graphs
+(`graphs.Signatures`): a request signature (B, N, the feature width) runs
+the eager forward (the key on the host) at its first call, is captured at
+its second and
+replayed at every later call, cut at the program's spans so that a trace
+of a replay holds the spans of the eager forward. The inputs and
+the key are copied into static buffers on the card, the key as the int64
+words that `torch.export` takes (`jaxrng.key_tensor`), so every key
+derivation runs on the card and a new key gives its own draws; the logits
+are copied out into a fresh array at each call. `graphs=False` keeps the
+eager forward for every call.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gridgcn_torch.graphs import CudaGraphs, Signatures
 from gridgcn_torch.models.build import build_model
 from gridgcn_torch.models.fold import fold_inference
 from gridgcn_torch.utils import jaxrng
@@ -43,14 +56,23 @@ from gridgcn_torch.utils.precision import full_fp32
 from gridgcn_torch.utils.profiling import annotate
 
 class Predictor:
-    def __init__(self, cfg, state_dict, device="cuda", mesh=None):
+    def __init__(self, cfg, state_dict, device="cuda", mesh=None,
+                 graphs: bool = True):
         """cfg: a `configs.base.Config`; state_dict: the model's unfolded
         weights (e.g. from `init_model` or `utils.convert`); device: where
         the model runs — "cuda" (the default) raises when CUDA is absent,
         "cpu" runs the kernels' plain versions. mesh: None (one device),
         an int (a data-parallel mesh of that many ranks, one device each,
         inside a process group) or a `parallel.mesh.Mesh`, whose device
-        then replaces `device`."""
+        then replaces `device`. graphs: replay the forward from CUDA
+        graphs where it runs on one CUDA device without a mesh (False:
+        the eager forward, against which tests hold the replay).
+
+        `requests` counts the calls; `captures` the signatures captured
+        and `replays` the calls replayed (0 on the CPU, on a mesh and with
+        graphs=False). The kernels' host counters (`knn3_mxu.launches`,
+        `jaxrng.launches`) count the eager calls and each capture, never a
+        replay."""
         self.mesh = None
         if mesh is not None:
             from gridgcn_torch.parallel.mesh import make_mesh, mesh_devices
@@ -68,6 +90,17 @@ class Predictor:
         self._model = model.to(self.device).eval()
         self._scene_fwds = {}       # per spatial tier, built at first use
         self.requests = 0           # calls made, each one span `request#<n>`
+        self._graphs = (Signatures(lambda: CudaGraphs(self.device))
+                        if graphs and self.mesh is None
+                        and self.device.type == "cuda" else None)
+
+    @property
+    def captures(self) -> int:
+        return self._graphs.captures if self._graphs else 0
+
+    @property
+    def replays(self) -> int:
+        return self._graphs.replays if self._graphs else 0
 
     @torch.no_grad()
     @full_fp32()
@@ -83,6 +116,11 @@ class Predictor:
             return self._predict(xyz, feat, mask, rng)
 
     def _predict(self, xyz, feat, mask, rng) -> np.ndarray:
+        if self._graphs is not None:
+            sig = _signature(xyz, feat)
+            if self._graphs.seen(sig):
+                with torch.cuda.device(self.device):
+                    return self._replayed(sig, xyz, feat, mask, rng)
         dev = self.device
         with annotate("copy_in"):
             xyz = torch.as_tensor(xyz, dtype=torch.float32, device=dev)
@@ -116,6 +154,29 @@ class Predictor:
                              rows(mask), key, row0=r0)
         with annotate("fetch"):
             out = self.mesh.gather_rows(logits.float(), Bp)[:B].cpu().numpy()
+        return out[0] if squeeze else out
+
+    def _replayed(self, sig, xyz, feat, mask, rng) -> np.ndarray:
+        """The single-device forward on the card from CUDA graphs
+        (`graphs.Signatures`), on the signature's static inputs."""
+        with annotate("copy_in"):
+            xyz = torch.as_tensor(xyz, dtype=torch.float32)
+            feat = None if feat is None else torch.as_tensor(
+                feat, dtype=torch.float32)
+            mask = None if mask is None else torch.as_tensor(
+                mask, dtype=torch.bool)
+            squeeze = xyz.dim() == 2
+            if squeeze:
+                xyz = xyz[None]
+                feat = None if feat is None else feat[None]
+                mask = None if mask is None else mask[None]
+            static = self._graphs.static(
+                sig, lambda: _StaticInputs(xyz, feat, self.device))
+            static.fill(xyz, feat, mask,
+                        jaxrng.PRNGKey(0) if rng is None else rng)
+        logits = self._graphs.run(sig, lambda: self._model(*static.args))
+        with annotate("fetch"):
+            out = logits.float().cpu().numpy()
         return out[0] if squeeze else out
 
     def predict_classes(self, xyz, feat=None, mask=None):
@@ -242,6 +303,47 @@ class Predictor:
                 feats=feats, rng=k, fwd=fwd)
             acc = lg if acc is None else acc + lg
         return acc / votes
+
+
+def _signature(xyz, feat) -> tuple:
+    """A request's signature: (B, N, the feature width or None), B = 1 for
+    one cloud [N, 3]. The inputs' dtypes are not in it: the static buffers
+    hold them cast, as the eager forward casts them."""
+    shape = tuple(np.shape(xyz))
+    lead = (1,) if len(shape) == 2 else ()
+    return (*lead, *shape[:-1], None if feat is None else np.shape(feat)[-1])
+
+
+class _StaticInputs:
+    """A signature's inputs on the card, which its captured forward reads
+    at each replay: xyz, feat (or None), mask and the key, int64 [2],
+    written through a page-locked block without blocking."""
+
+    def __init__(self, xyz, feat, device):
+        self.xyz = torch.empty(xyz.shape, device=device)
+        self.feat = None if feat is None else torch.empty(feat.shape,
+                                                          device=device)
+        self.mask = torch.empty(xyz.shape[:2], dtype=torch.bool,
+                                device=device)
+        self.key = torch.empty(2, dtype=torch.int64, device=device)
+        self._key_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+
+    @property
+    def args(self) -> tuple:
+        return self.xyz, self.feat, self.mask, self.key
+
+    def fill(self, xyz, feat, mask, key):
+        self.xyz.copy_(xyz)
+        if feat is not None:
+            self.feat.copy_(feat)
+        if mask is None:
+            self.mask.fill_(True)
+        else:
+            self.mask.copy_(mask)
+        # the last call's copy out of this block is done: that call's
+        # logits reached the host after it
+        self._key_host.numpy()[:] = np.asarray(key, np.uint32)
+        self.key.copy_(self._key_host, non_blocking=True)
 
 
 def load_predictor(ckpt_dir: str, step: Optional[int] = None,

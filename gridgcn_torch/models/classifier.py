@@ -62,9 +62,9 @@ class GridGCNClassifier(nn.Module):
         if cfg.use_xyz_feature:
             feat = xyz if feat is None else torch.cat([xyz, feat], -1)
         for i in range(len(cfg.layers)):
-            # flax: self.make_rng("cagq") inside module gridconv{i}
-            k = flax_make_rng(key, (f"gridconv{i}",), 1)
             with annotate(f"gridconv{i}"):
+                # flax: self.make_rng("cagq") inside module gridconv{i}
+                k = flax_make_rng(key, (f"gridconv{i}",), 1)
                 xyz, feat, mask = run_stage(getattr(self, f"gridconv{i}"),
                                             cfg.remat, xyz, feat, mask, k,
                                             None, row0)

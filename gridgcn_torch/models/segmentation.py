@@ -20,6 +20,7 @@ brute-force query, "grid" the voxel-table query, and "auto" dense up to
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -80,8 +81,12 @@ class GridGCNSegmentation(nn.Module):
                      bounds=None, row0: int = 0):
         """GridConv stage i: one CAGQ + GCA downsampling step
         (rematerialized in training with cfg.remat); the span
-        `gridconv{i}`."""
+        `gridconv{i}`. `key`: the layer's CAGQ key, or a function that
+        derives it inside the span (a tensor key's hash is then the
+        layer's work in a trace)."""
         with annotate(f"gridconv{i}"):
+            if callable(key):
+                key = key()
             return run_stage(getattr(self, f"gridconv{i}"), self.cfg.remat,
                              xyz, feat, mask, key, bounds, row0)
 
@@ -97,8 +102,9 @@ class GridGCNSegmentation(nn.Module):
                      row0: int = 0):
         """Feature-propagation stage i: 3-NN interpolation from the coarse
         level (c_*) to the dense level (d_*), skip-concat, shared MLP. `key`
-        is the grid query's voxel-build key (grid stages only). The stage
-        is the span `up{i}`, its query the span `knn3`."""
+        is the grid query's voxel-build key (grid stages only), or a
+        function that derives it inside the query's span. The stage is the
+        span `up{i}`, its query the span `knn3`."""
         up = self.cfg.up_layers[i]
         with annotate(f"up{i}"):
             with annotate("knn3"):
@@ -109,6 +115,8 @@ class GridGCNSegmentation(nn.Module):
                     if key is None:
                         raise ValueError(f"decoder stage {i} queries the "
                                          "grid and needs a key")
+                    if callable(key):
+                        key = key()
                     nn_idx, weights, _ = grid_three_nn(
                         d_xyz, d_mask, c_xyz, c_mask, up.resolution, up.nv,
                         key, k=up.k_interp, context=up.context, row0=row0)
@@ -155,7 +163,7 @@ class GridGCNSegmentation(nn.Module):
         levels = [(xyz, feat, mask)]
         for i in range(len(cfg.layers)):
             # flax: self.make_rng("cagq") inside module gridconv{i}
-            k = flax_make_rng(key, (f"gridconv{i}",), 1)
+            k = functools.partial(flax_make_rng, key, (f"gridconv{i}",), 1)
             xyz, feat, mask = self.encode_layer(i, xyz, feat, mask, k,
                                                 row0=row0)
             levels.append((xyz, feat, mask))
@@ -169,7 +177,7 @@ class GridGCNSegmentation(nn.Module):
                 # flax: self.make_rng("cagq") in the root module's scope,
                 # whose counter only the grid stages advance
                 n_grid += 1
-                k = flax_make_rng(key, (), n_grid)
+                k = functools.partial(flax_make_rng, key, (), n_grid)
             c_feat = self.decode_stage(i, c_xyz, c_feat, c_mask,
                                        d_xyz, d_feat, d_mask, k, row0)
             c_xyz, c_mask = d_xyz, d_mask

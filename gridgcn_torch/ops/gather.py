@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from gridgcn_torch.ops.gridutil import (
-    context_neighbors, context_offsets, top_k, vid_to_coords)
+    context_neighbors, context_offsets, device_constant, top_k,
+    vid_to_coords)
 from gridgcn_torch.ops.voxelize import (
     COV_BITS, VALID_KEY_MIN, VoxelTable, decode_coverage)
 from gridgcn_torch.utils import jaxrng
@@ -99,8 +100,8 @@ def _context_runs(padded: torch.Tensor, center_vids: torch.Tensor,
     _, inb = context_neighbors(center_vids, R, context)           # [B, M, P]
     inb = inb & center_valid[..., None]
     offs2 = context_offsets(context).reshape(P2, context, 3)[:, 0, :2]
-    d2lin = torch.as_tensor(offs2[:, 0] * R * R + offs2[:, 1] * R,
-                            dtype=torch.int64, device=dev)
+    d2lin = device_constant(offs2[:, 0] * R * R + offs2[:, 1] * R,
+                            torch.int64, dev)
     base = torch.clamp_max(center_vids, V)[..., None] + d2lin     # [B, M, P2]
     base = base.clamp(0, r + V)
     rows = base[..., None] + torch.arange(context, device=dev)    # [B,M,P2,c]

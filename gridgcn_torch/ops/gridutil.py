@@ -22,6 +22,26 @@ def context_offsets(context: int) -> np.ndarray:
     return np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values: np.ndarray, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+    """`torch.as_tensor(values, dtype=dtype, device=device)`, made once per
+    value and device and kept: a forward that a CUDA graph captures may
+    not copy a host array to the card (the eager call before a capture
+    makes it). A tensor made under a tracer (`torch.export`'s fake
+    tensors) is returned and not kept."""
+    key = (values.dtype.str, values.shape, values.tobytes(), dtype,
+           torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(values, dtype=dtype, device=device)
+        if type(t) is torch.Tensor:
+            _CONSTANTS[key] = t
+    return t
+
+
 def context_neighbors(vid: torch.Tensor, resolution: int, context: int):
     """Voxel ids of the context neighborhood π(v) for each input voxel.
 
@@ -33,8 +53,7 @@ def context_neighbors(vid: torch.Tensor, resolution: int, context: int):
             query voxel itself was valid.
     """
     V = resolution ** 3
-    offs = torch.as_tensor(context_offsets(context), dtype=vid.dtype,
-                           device=vid.device)
+    offs = device_constant(context_offsets(context), vid.dtype, vid.device)
     x, y, z = vid_to_coords(torch.clamp_max(vid, V - 1), resolution)
     nx = x[..., None] + offs[:, 0]
     ny = y[..., None] + offs[:, 1]

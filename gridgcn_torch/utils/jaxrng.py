@@ -34,10 +34,10 @@ as the JAX package's GSPMD program draws them once for the whole batch.
 fused multiply-adds bit for bit: `utils.xla_math` repeats them in torch,
 and `csrc/rng.cu` repeats the log and the multiply-add in its epilogues.
 
-Each draw, its float epilogue included, and each key derivation from a
-tensor key, is one span `jaxrng` in a profiler's trace
-(`utils.profiling.annotate`); the numpy key derivations run on the host
-and have none.
+Each draw, its float epilogue included, is one span `jaxrng` in a
+profiler's trace (`utils.profiling.annotate`). A key derivation has no
+span of its own: a tensor key's runs on the key's device inside the span
+of the layer that derives it, a numpy key's on the host.
 """
 
 from __future__ import annotations
@@ -56,20 +56,23 @@ _M32 = 0xFFFFFFFF
 launches = rng_kernel.launches      # kernel launches by epilogue
 
 
-def _key_hash(key, lo):
-    """The hash of counters (0, lo) under one key [2] or under each of
-    [B, 2] keys (→ a leading B axis), stacked into key pairs [..., n, 2]:
-    numpy uint32 for a numpy key, int64 on the key's device for a tensor
-    key. `lo` is a sequence of ints."""
+def _key_hash(key, start: int, num: int):
+    """The hash of counters (0, start + i), i < num, under one key [2] or
+    under each of [B, 2] keys (→ a leading B axis), stacked into key pairs
+    [..., num, 2]: numpy uint32 for a numpy key, int64 on the key's device
+    for a tensor key (the counters made there: a CUDA graph cannot capture
+    a host array's copy). A tensor key's hash is no span of its own: its
+    ops belong to the span that derives the key, and a captured forward is
+    cut at no hash."""
     if isinstance(key, torch.Tensor):
-        with annotate("jaxrng"):
-            k = key.long()
-            x1 = torch.tensor(lo, dtype=torch.int64, device=k.device)
-            b0, b1 = rng_kernel.threefry2x32(k[..., 0:1], k[..., 1:2],
-                                             torch.zeros_like(x1), x1)
-            return torch.stack([b0, b1], dim=-1)
+        k = key.long()
+        x1 = torch.arange(start, start + num, dtype=torch.int64,
+                          device=k.device)
+        b0, b1 = rng_kernel.threefry2x32(k[..., 0:1], k[..., 1:2],
+                                         torch.zeros_like(x1), x1)
+        return torch.stack([b0, b1], dim=-1)
     key = np.asarray(key, np.uint32)
-    x1 = np.asarray(lo, np.uint32)
+    x1 = np.arange(start, start + num, dtype=np.int64).astype(np.uint32)
     b0, b1 = rng_kernel.threefry2x32(key[..., 0:1], key[..., 1:2],
                                      np.zeros_like(x1), x1)
     return np.stack([b0, b1], axis=-1).astype(np.uint32)
@@ -92,12 +95,12 @@ def split(key, num: int = 2, start: int = 0):
     keys → [B, num, 2], each row the split of its key, in one pass. The
     split of a key is the hash of the counters 0, 1, ..., so `start`
     selects the keys of rows [start, start + num) of a larger split."""
-    return _key_hash(key, range(start, start + num))
+    return _key_hash(key, start, num)
 
 
 def fold_in(key, data: int):
     """`jax.random.fold_in(key, data)` for a uint32 `data`."""
-    return _key_hash(key, [int(data) & _M32])[..., 0, :]
+    return _key_hash(key, int(data) & _M32, 1)[..., 0, :]
 
 
 def flax_make_rng(key, path: tuple, counter: int):

@@ -69,13 +69,20 @@ def steady_state_time(fn: Callable, *args, warmup: int = 2,
 
 SPAN_PREFIX = "gridgcn/"
 _NO_SPAN = contextlib.nullcontext()
+# the CUDA-graph capture in progress (`graphs.capture` sets it): its
+# `span(name)` cuts the captured forward at the span's entry and exit
+_cutter = None
 
 
 def annotate(name: str):
     """The program's span `gridgcn/<name>`: a `record_function` while a
     profiler records, so that the span lands in the trace beside the
     kernels it launched, on the same clock; otherwise a shared no-op
-    context, at the cost of one flag check."""
+    context, at the cost of one flag check. While `graphs.capture`
+    captures a forward, the span instead ends the graph being captured
+    and begins the next at its entry and at its exit."""
+    if _cutter is not None:
+        return _cutter.span(name)
     if not torch.autograd._profiler_enabled():
         return _NO_SPAN
     return torch.profiler.record_function(SPAN_PREFIX + name)
